@@ -1,0 +1,2 @@
+from repro_torch.core.apps.cf import make_cf_app
+from repro_torch.core.apps.tc import make_tc_app

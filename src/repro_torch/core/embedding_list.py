@@ -1,0 +1,57 @@
+"""SoA embedding lists (paper §5.1, Fig. 8; counterpart of
+``repro.core.embedding_list``).
+
+Level ``L_i`` stores columnar int32 tensors ``vid`` (the (i+1)-th vertex of
+each embedding) and ``idx`` (parent index in ``L_{i-1}``), allocated at a
+static capacity with a valid count ``n`` held as a 0-d device tensor, so a
+level can be produced without reading the device.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass
+class EmbeddingLevel:
+    """One level of the prefix tree (static capacity, 0-d valid count)."""
+
+    vid: torch.Tensor                     # int32[cap]
+    idx: torch.Tensor                     # int32[cap] parent pointer
+    n: torch.Tensor                       # int32[] valid prefix length
+
+    @property
+    def capacity(self) -> int:
+        return self.vid.shape[0]
+
+    def nbytes(self) -> int:
+        return (self.vid.numel() + self.idx.numel()) * 4 + 4
+
+
+def init_level0_vertex(src: torch.Tensor, dst: torch.Tensor,
+                       n: torch.Tensor | int) -> list[EmbeddingLevel]:
+    """Initial worklist of single-edge embeddings (Alg. 1 line 4): level 0
+    stores v0 in ``idx`` and v1 in ``vid``."""
+    n = torch.as_tensor(n, dtype=torch.int32, device=src.device)
+    return [EmbeddingLevel(vid=dst.to(torch.int32), idx=src.to(torch.int32),
+                           n=n)]
+
+
+def materialize(levels: list[EmbeddingLevel]) -> torch.Tensor:
+    """Backtrack the prefix tree into an int32 [cap_last, k] vertex matrix
+    (k = len(levels) + 1), columns in extension order.  Rows past the last
+    level's valid count are garbage for the caller to mask."""
+    last = levels[-1]
+    cols = [last.vid]
+    ptr = last.idx
+    for lvl in reversed(levels[:-1]):
+        p = ptr.long()
+        cols.append(lvl.vid[p])
+        ptr = lvl.idx[p]
+    cols.append(ptr)
+    return torch.stack(cols[::-1], dim=1)
+
+
+def total_bytes(levels: list[EmbeddingLevel]) -> int:
+    return sum(lvl.nbytes() for lvl in levels)

@@ -1,0 +1,78 @@
+"""Phase-backend interface (counterpart of ``repro.core.phases.base``).
+
+The engine owns the per-level loop; a :class:`PhaseBackend` owns the set
+operations the loop composes.  This slice ports the vertex-induced EXTEND
+ops:
+
+  candidate_bound_vertex   cheap degree-sum upper bound
+  inspect_vertex           exact (candidate, survivor) counts
+  extend_vertex            produce the next SoA level
+  extend_pruned            fused extend + filter + compaction with counts
+                           (the warm-path op)
+
+Reduce, filter and the edge-induced ops wait for later slices.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.api import GraphCtx, MiningApp
+
+
+class PhaseBackend:
+    """Abstract extend op set.  Subclass and register."""
+
+    name: str = "abstract"
+
+    # How extend_pruned resolves cross-tile survivor offsets and what
+    # grid order that assumes; folded into the plan identity
+    # (repro_torch.core.plan.plan_app_key), as in the JAX package:
+    #   compaction          "xla-scan" (prefix-sum compaction outside any
+    #                       kernel) | "two-pass-scan" (per-tile counts ->
+    #                       exclusive scan -> masked scatter)
+    #   compaction_passes   kernel passes over the candidate range
+    #   grid_contract       "any" | "sequential" | "concurrent"
+    compaction: str = "xla-scan"
+    compaction_passes: int = 0
+    grid_contract: str = "any"
+
+    def capabilities(self, app: Optional[MiningApp] = None) -> dict:
+        return {"backend": self.name, "compaction": self.compaction,
+                "compaction_passes": self.compaction_passes,
+                "grid_contract": self.grid_contract,
+                "extend_vertex": "plain", "extend_pruned": "plain"}
+
+    def candidate_bound_vertex(self, ctx: GraphCtx, app: MiningApp,
+                               emb: torch.Tensor, n_valid: torch.Tensor,
+                               state: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+        raise NotImplementedError
+
+    def inspect_vertex(self, ctx: GraphCtx, app: MiningApp,
+                       emb: torch.Tensor, n_valid: torch.Tensor,
+                       state: Optional[torch.Tensor], cand_cap: int):
+        raise NotImplementedError
+
+    def extend_vertex(self, ctx: GraphCtx, app: MiningApp,
+                      emb: torch.Tensor, n_valid: torch.Tensor,
+                      state: Optional[torch.Tensor], cand_cap: int,
+                      out_cap: int, fuse_filter: bool = True):
+        raise NotImplementedError
+
+    def extend_pruned(self, ctx: GraphCtx, app: MiningApp,
+                      emb: torch.Tensor, n_valid: torch.Tensor,
+                      state: Optional[torch.Tensor], cand_cap: int,
+                      out_cap: int, fuse_filter: bool = True):
+        """Fused extend + eager toAdd filter + stream compaction.
+
+        Returns ``(level, new_emb, n_candidates)``; the survivor count is
+        ``level.n``.  Both counts come back as device tensors, so a plan
+        replay checks overflow without an inspection pass and without a
+        host read.
+        """
+        raise NotImplementedError
+
+    def __repr__(self) -> str:
+        return f"<PhaseBackend {self.name}>"

@@ -1,0 +1,264 @@
+// Fused EXTEND kernels for Hopper (sm_90a): the CUDA C++ port of the Pallas
+// kernels in repro/kernels/extend_fused/extend.py.
+//
+//   extend_candidates   unpruned enumeration for cold inspection
+//                       (replaces _fused_extend_kernel / fused_extend_pallas)
+//   extend_count        pass 1 of the two-pass pruned extend
+//   extend_scatter      pass 2 of the two-pass pruned extend
+//                       (replace _mp_count_kernel / _mp_scatter_kernel /
+//                        fused_extend_pruned_mp_pallas; both passes share
+//                        enumerate_slot, the port of _tile_enumerate)
+//
+// Each entry point has a plain C interface (bound with ctypes), launches on
+// the stream it is given, allocates nothing, never synchronises, and returns
+// cudaGetLastError() so the caller sees a refused launch.
+//
+// What bounds them on an H100: none does arithmetic worth counting; all are
+// memory-latency bound.  Per candidate slot a thread runs a binary search of
+// the parent prefix sum (log2 of cap*k dependent loads), one CSR gather, and
+// up to k connectivity probes (a binary search of a CSR row, or one word of
+// the bit-packed adjacency).  The compulsory traffic is the parent tables
+// (5 x 4 B per parent slot), col_idx (3.6 MB at RMAT-16, which stays in the
+// 50 MB L2) and the outputs: 16 B per slot for extend_candidates, 4 B per
+// tile for extend_count, 8 B per survivor for extend_scatter.  The simple
+// design here runs one thread per slot so neighbouring threads walk nearly
+// the same search path (the top of each search hits L1/L2), skips the probes
+// of a slot once its predicate is already false, and does not enumerate dead
+// slots in the pruned pair.  Making them fast (a per-CTA parent window in
+// shared memory, warp-cooperative probes) is later work.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTile = 512;            // slots per CTA in the pruned pair
+constexpr int kWarps = kTile / 32;
+constexpr int kCandThreads = 256;     // threads per CTA in extend_candidates
+
+// The clique predicate, as PredicateSpec in repro_torch/core/api.py.
+struct Spec {
+  int required;     // conn bit j must be set
+  int distinct;     // u != emb_j
+  int greater;      // u > emb_j
+  int src_slot_eq;  // src_slot == this, when >= 0
+};
+
+struct Tables {
+  const int* offsets;   // inclusive prefix sum of per-parent counts
+  const int* starts;    // exclusive prefix sum
+  const int* emb;       // parent vertices, [cap * k]
+  const int* vlo;       // row_ptr[emb]
+  const int* vhi;       // row_ptr[emb + 1]
+  const int* col;       // CSR column array, [m]
+  int n_parents;
+  int m;
+  int k;
+};
+
+__device__ __forceinline__ int clampi(int x, int lo, int hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// First p with offsets[p] > slot, clipped to n_parents - 1 (extend.py:80-92).
+__device__ __forceinline__ int parent_of(const int* __restrict__ offsets,
+                                         int n_parents, int slot) {
+  int lo = 0, hi = n_parents;
+  while (lo < hi) {
+    int mid = (lo + hi) >> 1;
+    if (__ldg(offsets + mid) <= slot) lo = mid + 1; else hi = mid;
+  }
+  return lo < n_parents - 1 ? lo : n_parents - 1;
+}
+
+// Is u in col[lo:hi)?  A lower-bound search; it ends where the JAX kernel's
+// fixed count of branchless steps ends (extend.py:99-118).
+__device__ __forceinline__ bool csr_contains(const int* __restrict__ col,
+                                             int lo, int hi, int u) {
+  int l = lo, h = hi - 1;
+  while (l <= h) {
+    int mid = (l + h) >> 1;
+    if (__ldg(col + mid) < u) l = mid + 1; else h = mid - 1;
+  }
+  return lo < hi && l < hi && __ldg(col + l) == u;
+}
+
+// Bit u of row `row` of the full bit-packed adjacency (extend.py:246-250).
+__device__ __forceinline__ bool bitmap_contains(const uint32_t* __restrict__ bits,
+                                                int n_words, int n_vertices,
+                                                int row, int u) {
+  int ub = clampi(u, 0, n_vertices - 1);
+  uint32_t w = __ldg(bits + (long long)row * n_words + (ub >> 5));
+  return (w >> (ub & 31)) & 1u;
+}
+
+struct Cand {
+  int row;
+  int u;
+  bool keep;
+};
+
+// K1, the shared stage of both passes (port of _tile_enumerate): parent
+// search, CSR gather, k-way connectivity and the predicate, for one live
+// slot.  Both passes call this one function, so pass 2 replays pass 1.
+__device__ __forceinline__ Cand enumerate_slot(const Tables& t, int slot,
+                                               const uint32_t* __restrict__ bits,
+                                               int use_bitmap, int n_words,
+                                               int n_vertices, Spec spec) {
+  int p = parent_of(t.offsets, t.n_parents, slot);
+  int row = p / t.k;
+  int src_slot = p - row * t.k;
+  int ptr = clampi(t.vlo[p] + (slot - t.starts[p]), 0, t.m - 1);
+  int u = __ldg(t.col + ptr);
+  bool ok = u >= 0;
+  if (spec.src_slot_eq >= 0) ok = ok && src_slot == spec.src_slot_eq;
+  int base = row * t.k;
+  for (int j = 0; j < t.k && ok; ++j) {
+    int pj = clampi(base + j, 0, t.n_parents - 1);
+    int ev = t.emb[pj];
+    if ((spec.distinct >> j) & 1) ok = ok && u != ev;
+    if ((spec.greater >> j) & 1) ok = ok && u > ev;
+    if (ok && ((spec.required >> j) & 1)) {
+      bool found = ev >= 0 && (use_bitmap
+          ? bitmap_contains(bits, n_words, n_vertices,
+                            clampi(ev, 0, n_vertices - 1), u)
+          : csr_contains(t.col, t.vlo[pj], t.vhi[pj], u));
+      ok = found;
+    }
+  }
+  return Cand{row, u, ok};
+}
+
+__global__ void __launch_bounds__(kCandThreads)
+extend_candidates_kernel(Tables t, int cand_cap, int* __restrict__ row_out,
+                         int* __restrict__ u_out, int* __restrict__ slot_out,
+                         int* __restrict__ conn_out) {
+  int slot = blockIdx.x * kCandThreads + threadIdx.x;
+  if (slot >= cand_cap) return;
+  int p = parent_of(t.offsets, t.n_parents, slot);
+  int row = p / t.k;
+  int ptr = clampi(t.vlo[p] + (slot - t.starts[p]), 0, t.m - 1);
+  int u = __ldg(t.col + ptr);
+  int conn = 0;
+  for (int j = 0; j < t.k; ++j) {
+    int pj = clampi(row * t.k + j, 0, t.n_parents - 1);
+    bool found = t.emb[pj] >= 0 && u >= 0
+        && csr_contains(t.col, t.vlo[pj], t.vhi[pj], u);
+    conn |= int(found) << j;
+  }
+  row_out[slot] = row;
+  u_out[slot] = u;
+  slot_out[slot] = p - row * t.k;
+  conn_out[slot] = conn;
+}
+
+__global__ void __launch_bounds__(kTile)
+extend_count_kernel(Tables t, int cand_cap, const uint32_t* __restrict__ bits,
+                    int use_bitmap, int n_words, int n_vertices, Spec spec,
+                    int* __restrict__ counts) {
+  int slot = blockIdx.x * kTile + threadIdx.x;
+  int total = t.offsets[t.n_parents - 1];
+  bool keep = false;
+  if (slot < cand_cap && slot < total)
+    keep = enumerate_slot(t, slot, bits, use_bitmap, n_words, n_vertices,
+                          spec).keep;
+  int cnt = __syncthreads_count(keep);
+  if (threadIdx.x == 0) counts[blockIdx.x] = cnt;
+}
+
+__global__ void __launch_bounds__(kTile)
+extend_scatter_kernel(Tables t, int cand_cap, const uint32_t* __restrict__ bits,
+                      int use_bitmap, int n_words, int n_vertices, Spec spec,
+                      const int* __restrict__ bases, int out_cap,
+                      int* __restrict__ row_out, int* __restrict__ u_out) {
+  __shared__ int warp_base[kWarps];
+  int slot = blockIdx.x * kTile + threadIdx.x;
+  int total = t.offsets[t.n_parents - 1];
+  Cand c{0, -1, false};
+  if (slot < cand_cap && slot < total)
+    c = enumerate_slot(t, slot, bits, use_bitmap, n_words, n_vertices, spec);
+  // In-tile exclusive scan in lane order (stable compaction, extend.py:296).
+  int lane = threadIdx.x & 31;
+  int warp = threadIdx.x >> 5;
+  unsigned ballot = __ballot_sync(0xffffffffu, c.keep);
+  if (lane == 0) warp_base[warp] = __popc(ballot);
+  __syncthreads();
+  if (warp == 0) {
+    int v = lane < kWarps ? warp_base[lane] : 0;
+    int x = v;
+    for (int d = 1; d < 32; d <<= 1) {
+      int y = __shfl_up_sync(0xffffffffu, x, d);
+      if (lane >= d) x += y;
+    }
+    if (lane < kWarps) warp_base[lane] = x - v;
+  }
+  __syncthreads();
+  if (c.keep) {
+    int r = warp_base[warp] + __popc(ballot & ((1u << lane) - 1u));
+    long long dest = (long long)bases[blockIdx.x] + r;
+    if (dest < out_cap) {
+      row_out[dest] = c.row;
+      u_out[dest] = c.u;
+    }
+  }
+}
+
+Tables make_tables(const int* offsets, const int* starts, const int* emb,
+                   const int* vlo, const int* vhi, const int* col,
+                   int n_parents, int m, int k) {
+  return Tables{offsets, starts, emb, vlo, vhi, col, n_parents, m, k};
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* extend_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+int extend_candidates(const int* offsets, const int* starts, const int* emb,
+                      const int* vlo, const int* vhi, const int* col,
+                      int n_parents, int m, int k, int cand_cap, int* row,
+                      int* u, int* src_slot, int* conn, void* stream) {
+  Tables t = make_tables(offsets, starts, emb, vlo, vhi, col, n_parents, m, k);
+  int blocks = (cand_cap + kCandThreads - 1) / kCandThreads;
+  extend_candidates_kernel<<<blocks, kCandThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      t, cand_cap, row, u, src_slot, conn);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int extend_count(const int* offsets, const int* starts, const int* emb,
+                 const int* vlo, const int* vhi, const int* col,
+                 const uint32_t* bits, int n_parents, int m, int k,
+                 int cand_cap, int use_bitmap, int n_words, int n_vertices,
+                 int required, int distinct, int greater, int src_slot_eq,
+                 int* counts, void* stream) {
+  Tables t = make_tables(offsets, starts, emb, vlo, vhi, col, n_parents, m, k);
+  Spec spec{required, distinct, greater, src_slot_eq};
+  int n_tiles = (cand_cap + kTile - 1) / kTile;
+  extend_count_kernel<<<n_tiles, kTile, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      t, cand_cap, bits, use_bitmap, n_words, n_vertices, spec, counts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int extend_scatter(const int* offsets, const int* starts, const int* emb,
+                   const int* vlo, const int* vhi, const int* col,
+                   const uint32_t* bits, int n_parents, int m, int k,
+                   int cand_cap, int use_bitmap, int n_words, int n_vertices,
+                   int required, int distinct, int greater, int src_slot_eq,
+                   const int* bases, int out_cap, int* row, int* u,
+                   void* stream) {
+  Tables t = make_tables(offsets, starts, emb, vlo, vhi, col, n_parents, m, k);
+  Spec spec{required, distinct, greater, src_slot_eq};
+  int n_tiles = (cand_cap + kTile - 1) / kTile;
+  extend_scatter_kernel<<<n_tiles, kTile, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      t, cand_cap, bits, use_bitmap, n_words, n_vertices, spec, bases,
+      out_cap, row, u);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,0 +1,225 @@
+"""Wrappers of the fused extend kernels: check, dispatch, count.
+
+Each wrapper checks its tensors (int32, 1-D, contiguous, one device), then
+dispatches on that device: a CPU tensor runs the plain PyTorch version in
+``ref.py``; a CUDA tensor launches the CUDA kernel of ``csrc/extend.cu`` on
+the current stream, or raises.  There is no fallback on the card.
+``LAUNCHES`` counts each wrapper's kernel launches, and nothing else, so a
+run can show that its path went through the kernels.
+
+The library is built (``repro_torch.kernels.build``) and loaded at the
+first launch, never at import.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.core.api import PredicateSpec
+from repro_torch.kernels import build
+from repro_torch.kernels.extend_fused import ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "extend.cu"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+# Kernel launches per wrapper, counted where each wrapper launches.
+LAUNCHES = dict.fromkeys(("extend_candidates", "extend_count",
+                          "extend_scatter"), 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = build.load(SOURCE)
+    lib.extend_candidates.argtypes = [_P] * 6 + [_I] * 4 + [_P] * 5
+    lib.extend_count.argtypes = [_P] * 7 + [_I] * 11 + [_P] * 2
+    lib.extend_scatter.argtypes = ([_P] * 7 + [_I] * 11
+                                   + [_P, _I] + [_P] * 3)
+    for fn in (lib.extend_candidates, lib.extend_count, lib.extend_scatter):
+        fn.restype = ctypes.c_int
+    lib.extend_error_string.argtypes = [_I]
+    lib.extend_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(name: str, **tensors: torch.Tensor) -> torch.device:
+    """All tensors int32, 1-D, contiguous, non-empty, on one device."""
+    devices = set()
+    for arg, t in tensors.items():
+        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be a contiguous 1-D int32 "
+                             f"tensor, got {t.dtype} {tuple(t.shape)}")
+        if t.numel() == 0:
+            raise ValueError(f"{name}: {arg} is empty")
+        devices.add(t.device)
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors on several devices {devices}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev
+
+
+def _launch(name: str, fn, *args) -> None:
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        msg = _lib().extend_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")
+
+
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def _check_parents(name, offsets, starts, emb_flat, vlo, vhi, k):
+    n = offsets.shape[0]
+    if any(t.shape[0] != n for t in (starts, emb_flat, vlo, vhi)):
+        raise ValueError(f"{name}: parent tables differ in length")
+    if n % k:
+        raise ValueError(f"{name}: {n} parent slots is not a multiple of "
+                         f"k={k}")
+
+
+def extend_candidates(col_idx, offsets, starts, emb_flat, vlo, vhi, *,
+                      k: int, cand_cap: int, n_steps: int):
+    """Unpruned enumeration for cold inspection: (row, u, src_slot, conn),
+    each int32[cand_cap].  See :func:`ref.extend_candidates_ref`."""
+    dev = _check("extend_candidates", col_idx=col_idx, offsets=offsets,
+                 starts=starts, emb_flat=emb_flat, vlo=vlo, vhi=vhi)
+    _check_parents("extend_candidates", offsets, starts, emb_flat, vlo, vhi,
+                   k)
+    if not 1 <= cand_cap <= 1 << 30:
+        raise ValueError(f"extend_candidates: cand_cap={cand_cap}")
+    if dev.type == "cpu":
+        return ref.extend_candidates_ref(col_idx, offsets, starts, emb_flat,
+                                         vlo, vhi, k=k, cand_cap=cand_cap,
+                                         n_steps=n_steps)
+    out = [torch.empty(cand_cap, dtype=torch.int32, device=dev)
+           for _ in range(4)]
+    lib = _lib()
+    _launch("extend_candidates", lib.extend_candidates,
+            *map(_ptr, (offsets, starts, emb_flat, vlo, vhi, col_idx)),
+            offsets.shape[0], col_idx.shape[0], k, cand_cap,
+            *map(_ptr, out))
+    LAUNCHES["extend_candidates"] += 1
+    return tuple(out)
+
+
+
+def _pruned_args(name, col_idx, offsets, starts, emb_flat, vlo, vhi, bits,
+                 k, cand_cap, n_vertices, n_words, spec, conn_mode):
+    dev = _check(name, col_idx=col_idx, offsets=offsets, starts=starts,
+                 emb_flat=emb_flat, vlo=vlo, vhi=vhi, bits=bits)
+    _check_parents(name, offsets, starts, emb_flat, vlo, vhi, k)
+    if not 1 <= cand_cap <= 1 << 30:
+        raise ValueError(f"{name}: cand_cap={cand_cap}")
+    if conn_mode not in ("bitmap", "search"):
+        raise ValueError(f"{name}: conn_mode {conn_mode!r} not in "
+                         "('bitmap', 'search')")
+    if conn_mode == "bitmap" and bits.shape[0] < n_vertices * n_words:
+        raise ValueError(f"{name}: bitmap mode needs the full pack "
+                         f"({n_vertices} x {n_words} words)")
+    if not isinstance(spec, PredicateSpec):
+        raise TypeError(f"{name}: spec must be a PredicateSpec")
+    c_args = (*map(_ptr, (offsets, starts, emb_flat, vlo, vhi, col_idx,
+                          bits)),
+              offsets.shape[0], col_idx.shape[0], k, cand_cap,
+              int(conn_mode == "bitmap"), n_words, n_vertices,
+              spec.required, spec.distinct, spec.greater, spec.src_slot_eq)
+    return dev, c_args
+
+
+def extend_count(col_idx, offsets, starts, emb_flat, vlo, vhi, bits, *,
+                 k: int, cand_cap: int, n_steps: int, n_vertices: int,
+                 n_words: int, spec: PredicateSpec, conn_mode: str):
+    """Pass 1 of the pruned extend: survivors per tile of 512 slots.  See
+    :func:`ref.extend_count_ref`."""
+    dev, c_args = _pruned_args("extend_count", col_idx, offsets, starts,
+                               emb_flat, vlo, vhi, bits, k, cand_cap,
+                               n_vertices, n_words, spec, conn_mode)
+    if dev.type == "cpu":
+        return ref.extend_count_ref(col_idx, offsets, starts, emb_flat, vlo,
+                                    vhi, bits, k=k, cand_cap=cand_cap,
+                                    n_steps=n_steps, n_vertices=n_vertices,
+                                    n_words=n_words, spec=spec,
+                                    conn_mode=conn_mode)
+    counts = torch.empty(-(-cand_cap // ref.BLOCK_C), dtype=torch.int32,
+                         device=dev)
+    _launch("extend_count", _lib().extend_count, *c_args, _ptr(counts))
+    LAUNCHES["extend_count"] += 1
+    return counts
+
+
+
+def extend_scatter(col_idx, offsets, starts, emb_flat, vlo, vhi, bits,
+                   bases, *, k: int, cand_cap: int, out_cap: int,
+                   n_steps: int, n_vertices: int, n_words: int,
+                   spec: PredicateSpec, conn_mode: str):
+    """Pass 2 of the pruned extend: (row, u), each int32[out_cap], with
+    tile i's survivors at ``bases[i] + rank``.  See
+    :func:`ref.extend_scatter_ref`."""
+    dev, c_args = _pruned_args("extend_scatter", col_idx, offsets, starts,
+                               emb_flat, vlo, vhi, bits, k, cand_cap,
+                               n_vertices, n_words, spec, conn_mode)
+    if (bases.dtype != torch.int32 or not bases.is_contiguous()
+            or bases.device != dev
+            or bases.shape != (-(-cand_cap // ref.BLOCK_C),)):
+        raise ValueError("extend_scatter: bases must be int32[n_tiles] on "
+                         "the inputs' device")
+    if out_cap < 1:
+        raise ValueError(f"extend_scatter: out_cap={out_cap}")
+    if dev.type == "cpu":
+        return ref.extend_scatter_ref(col_idx, offsets, starts, emb_flat,
+                                      vlo, vhi, bits, bases, k=k,
+                                      cand_cap=cand_cap, out_cap=out_cap,
+                                      n_steps=n_steps, n_vertices=n_vertices,
+                                      n_words=n_words, spec=spec,
+                                      conn_mode=conn_mode)
+    row = torch.zeros(out_cap, dtype=torch.int32, device=dev)
+    u = torch.full((out_cap,), -1, dtype=torch.int32, device=dev)
+    _launch("extend_scatter", _lib().extend_scatter, *c_args, _ptr(bases),
+            out_cap, _ptr(row), _ptr(u))
+    LAUNCHES["extend_scatter"] += 1
+    return row, u
+
+
+PLAIN_VERSIONS = (ref.extend_candidates_ref, ref.extend_count_ref,
+                  ref.extend_scatter_ref)
+
+
+def reset_counts() -> None:
+    """Zero ``LAUNCHES`` and every plain version's ``calls``."""
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+    for fn in PLAIN_VERSIONS:
+        fn.calls = 0
+
+
+def extend_pruned(col_idx, offsets, starts, emb_flat, vlo, vhi, bits, *,
+                  k: int, cand_cap: int, out_cap: int, n_steps: int,
+                  n_vertices: int, n_words: int, spec: PredicateSpec,
+                  conn_mode: str):
+    """The two-pass pruned extend: count, exclusive scan, scatter.
+
+    Pass 1 counts survivors per tile; an int32 ``torch.cumsum`` of the
+    counts (left to PyTorch, as the JAX package leaves it to XLA) gives
+    each tile's base and the true survivor total; pass 2 replays the
+    predicate and writes each tile's survivors into its disjoint window.
+    Returns (row int32[out_cap], u int32[out_cap], n_surv int32[],
+    tile_counts int32[n_tiles]) — the contract of
+    ``repro.kernels.extend_fused.ref.fused_extend_pruned_mp_ref``.
+    """
+    kw = dict(k=k, cand_cap=cand_cap, n_steps=n_steps,
+              n_vertices=n_vertices, n_words=n_words, spec=spec,
+              conn_mode=conn_mode)
+    counts = extend_count(col_idx, offsets, starts, emb_flat, vlo, vhi,
+                          bits, **kw)
+    incl = torch.cumsum(counts, 0, dtype=torch.int32)
+    bases = incl - counts
+    row, u = extend_scatter(col_idx, offsets, starts, emb_flat, vlo, vhi,
+                            bits, bases, out_cap=out_cap, **kw)
+    return row, u, incl[-1], counts

@@ -1,0 +1,173 @@
+"""Plain PyTorch versions of the fused extend kernels.
+
+Each function computes exactly what its CUDA kernel in ``csrc/extend.cu``
+computes, with PyTorch ops, on any device.  The wrappers in ``ops.py`` take
+these for CPU tensors; the tests hold them against the JAX package's jnp
+oracles (``repro.kernels.extend_fused.ref``), and ``chip_smoke.py`` holds
+each kernel against them on the card.  ``calls`` on each function counts
+how often it ran, so a run can show the plain versions stayed off its path.
+
+Each also takes an optional slot range ``slots=(lo, hi)`` and then computes
+only what slots ``lo .. hi-1`` of the same launch produce, so a launch too
+large for the plain version's temporaries can be checked piece by piece.
+For the pruned pair, ``lo`` and ``hi`` are tile-aligned (or ``hi`` is
+``cand_cap``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.api import PredicateSpec
+from repro_torch.sparse.intersect import binary_contains
+
+# Candidate slots per tile of the pruned pair (the JAX kernels' block_c).
+BLOCK_C = 512
+
+
+def _slot_range(slots, cand_cap: int, tiled: bool) -> tuple[int, int]:
+    lo, hi = (0, cand_cap) if slots is None else slots
+    if not 0 <= lo < hi <= cand_cap:
+        raise ValueError(f"slots {slots} outside [0, {cand_cap})")
+    if tiled and (lo % BLOCK_C or (hi % BLOCK_C and hi != cand_cap)):
+        raise ValueError(f"slots {slots} are not tile-aligned")
+    return lo, hi
+
+
+def _parents(offsets: torch.Tensor, lo: int, hi: int
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per slot of ``lo .. hi-1``, the first parent p with offsets[p] >
+    slot, clipped to the last parent (searchsorted-right on the inclusive
+    prefix sum)."""
+    slots = torch.arange(lo, hi, dtype=torch.int32, device=offsets.device)
+    p = torch.searchsorted(offsets, slots, right=True, out_int32=True)
+    return slots, p.clamp(0, offsets.shape[0] - 1)
+
+
+def extend_candidates_ref(col_idx, offsets, starts, emb_flat, vlo, vhi, *,
+                          k: int, cand_cap: int, n_steps: int, slots=None):
+    """Unpruned enumeration (counterpart of ``fused_extend_ref``).
+
+    For each candidate slot: its parent by a search of the inclusive prefix
+    sum ``offsets``, the candidate ``u = col_idx[vlo[p] + rank]``, and the
+    k-way connectivity bitmask (bit j: u in N(emb[row, j])).  Returns
+    (row, u, src_slot, conn), each int32[cand_cap] (or int32[hi - lo]);
+    slots past the true total carry the clipped last parent's values for
+    the caller to mask.
+    """
+    extend_candidates_ref.calls += 1
+    lo, hi = _slot_range(slots, cand_cap, tiled=False)
+    n_parents = offsets.shape[0]
+    m = col_idx.shape[0]
+    slots, p = _parents(offsets, lo, hi)
+    row = torch.div(p, k, rounding_mode="floor")
+    src_slot = p - row * k
+    pl = p.long()
+    ptr = vlo[pl] + (slots - starts[pl])
+    u = col_idx[ptr.clamp(0, m - 1).long()]
+    conn = torch.zeros(hi - lo, dtype=torch.int32, device=u.device)
+    for j in range(k):
+        pj = (row * k + j).clamp(0, n_parents - 1).long()
+        found = binary_contains(col_idx, vlo[pj], vhi[pj], u, n_steps)
+        found = found & (emb_flat[pj] >= 0) & (u >= 0)
+        conn = conn | (found.to(torch.int32) << j)
+    return row, u, src_slot, conn
+
+
+extend_candidates_ref.calls = 0
+
+
+def _pruned_mask(col_idx, offsets, starts, emb_flat, vlo, vhi, bits, *,
+                 lo: int, hi: int, k: int, n_steps: int, n_vertices: int,
+                 n_words: int, spec: PredicateSpec, conn_mode: str):
+    """Stage K1 of the pruned pair: enumerate, probe, apply the predicate.
+
+    Returns (row, u, keep) over slots ``lo .. hi-1``.  ``conn_mode`` is
+    "bitmap" (``bits`` holds the full pack, one int32 row pattern per
+    vertex) or "search" (CSR binary search; ``bits`` unused).
+    """
+    n_parents = offsets.shape[0]
+    m = col_idx.shape[0]
+    slots, p = _parents(offsets, lo, hi)
+    row = torch.div(p, k, rounding_mode="floor")
+    src_slot = p - row * k
+    pl = p.long()
+    ptr = vlo[pl] + (slots - starts[pl])
+    u = col_idx[ptr.clamp(0, m - 1).long()]
+    live = slots < offsets[n_parents - 1]
+    u_b = u.clamp(0, n_vertices - 1)
+    emb_cols, conn_cols = [], []
+    for j in range(k):
+        pj = (row * k + j).clamp(0, n_parents - 1).long()
+        ev = emb_flat[pj]
+        if conn_mode == "bitmap":
+            ev_c = ev.clamp(0, n_vertices - 1).long()
+            w = bits[ev_c * n_words + (u_b >> 5).long()]
+            found = ((w >> (u_b & 31)) & 1) == 1
+        elif conn_mode == "search":
+            found = binary_contains(col_idx, vlo[pj], vhi[pj], u, n_steps)
+        else:
+            raise ValueError(f"conn_mode {conn_mode!r} not in "
+                             "('bitmap', 'search')")
+        emb_cols.append(ev)
+        conn_cols.append(found & (ev >= 0) & (u >= 0))
+    st = torch.zeros(hi - lo, dtype=torch.int32, device=u.device)
+    keep = spec(emb_cols, u, src_slot, st, conn_cols) & live
+    return row, u, keep
+
+
+def extend_count_ref(col_idx, offsets, starts, emb_flat, vlo, vhi, bits, *,
+                     k: int, cand_cap: int, n_steps: int, n_vertices: int,
+                     n_words: int, spec: PredicateSpec, conn_mode: str,
+                     slots=None):
+    """Pass 1 of the pruned pair: survivors per tile of ``BLOCK_C`` slots
+    (int32[ceil(cand_cap / BLOCK_C)], or the tiles of ``slots``)."""
+    extend_count_ref.calls += 1
+    lo, hi = _slot_range(slots, cand_cap, tiled=True)
+    _, _, keep = _pruned_mask(col_idx, offsets, starts, emb_flat, vlo, vhi,
+                              bits, lo=lo, hi=hi, k=k, n_steps=n_steps,
+                              n_vertices=n_vertices, n_words=n_words,
+                              spec=spec, conn_mode=conn_mode)
+    n_tiles = -(-(hi - lo) // BLOCK_C)
+    ki = torch.zeros(n_tiles * BLOCK_C, dtype=torch.int32, device=keep.device)
+    ki[:hi - lo] = keep.to(torch.int32)
+    return ki.view(n_tiles, BLOCK_C).sum(dim=1, dtype=torch.int32)
+
+
+extend_count_ref.calls = 0
+
+
+def extend_scatter_ref(col_idx, offsets, starts, emb_flat, vlo, vhi, bits,
+                       bases, *, k: int, cand_cap: int, out_cap: int,
+                       n_steps: int, n_vertices: int, n_words: int,
+                       spec: PredicateSpec, conn_mode: str, slots=None):
+    """Pass 2 of the pruned pair: survivor r of tile i goes to
+    ``bases[i] + r`` when that is below ``out_cap``.
+
+    Returns (row, u), each int32[out_cap]; slots no survivor reaches hold
+    0 and -1 (with ``slots``, only that range's survivors are written).
+    """
+    extend_scatter_ref.calls += 1
+    lo, hi = _slot_range(slots, cand_cap, tiled=True)
+    row, u, keep = _pruned_mask(col_idx, offsets, starts, emb_flat, vlo,
+                                vhi, bits, lo=lo, hi=hi, k=k,
+                                n_steps=n_steps, n_vertices=n_vertices,
+                                n_words=n_words, spec=spec,
+                                conn_mode=conn_mode)
+    n_tiles = -(-(hi - lo) // BLOCK_C)
+    ki = torch.zeros(n_tiles * BLOCK_C, dtype=torch.int32, device=keep.device)
+    ki[:hi - lo] = keep.to(torch.int32)
+    rank = torch.cumsum(ki.view(n_tiles, BLOCK_C), dim=1,
+                        dtype=torch.int32).view(-1)[:hi - lo] - 1
+    t0 = lo // BLOCK_C
+    tile_base = bases[t0:t0 + n_tiles].repeat_interleave(BLOCK_C)[:hi - lo]
+    dest = tile_base.long() + rank
+    dest = torch.where(keep & (dest < out_cap), dest, out_cap)
+    row_out = torch.zeros(out_cap + 1, dtype=torch.int32, device=u.device)
+    u_out = torch.full((out_cap + 1,), -1, dtype=torch.int32,
+                       device=u.device)
+    row_out.index_put_((dest,), row.to(torch.int32))
+    u_out.index_put_((dest,), u)
+    return row_out[:out_cap], u_out[:out_cap]
+
+
+extend_scatter_ref.calls = 0

@@ -1,0 +1,80 @@
+"""PyTorch port, the smoke script's kernel checks, run on the CPU.
+
+``chip_smoke.py`` holds every kernel launch of the main path against the
+kernel's plain version, piece by piece over slot ranges.  On the CPU the
+wrappers run the plain versions themselves, so these tests show that the
+pieces cover every output element and agree with the whole launch, and
+that a wrong output of any kernel stops the run.
+"""
+import importlib.util
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.core import make_cf_app, make_tc_app
+from repro_torch.graph.generators import rmat
+from repro_torch.kernels.extend_fused import ops
+
+ROOT = Path(__file__).resolve().parents[1]
+APPS = (("tc", make_tc_app()), ("4-cf", make_cf_app(4)))
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _graph_and_counts(smoke):
+    g = rmat(7, 8, seed=0, device="cpu")
+    return g, dict(zip(("tc", "4-cf"), smoke.scipy_counts(g)))
+
+
+@pytest.mark.parametrize("mode,pack", [("bitmap", 4 << 20), ("search", 0)])
+def test_checks_hold_every_launch(mode, pack):
+    smoke = _smoke()
+    g, expected = _graph_and_counts(smoke)
+    checks = smoke.checked_runs(g, APPS, expected, "cpu", pack_max_bytes=pack,
+                                keep="tc", chunk=512)
+    assert min(checks.launches.values()) >= 2
+    assert set(checks.err.values()) == {0}
+    assert mode in checks.modes and checks.overflow_cases >= 1
+    assert sorted(checks.kept) == sorted(smoke.REPLACES)
+    assert ops.extend_scatter.__name__ == "extend_scatter"     # restored
+
+
+def _wrong_candidates(fn):
+    def run(*a, **kw):
+        row, u, src_slot, conn = fn(*a, **kw)
+        return row, u, src_slot, conn ^ (torch.arange(conn.shape[0]) == 5)
+    return run
+
+
+def _wrong_count(fn):
+    def run(*a, **kw):
+        counts = fn(*a, **kw).clone()
+        counts[-1] += 1
+        return counts
+    return run
+
+
+def _wrong_scatter(fn):
+    def run(*a, **kw):
+        row, u = fn(*a, **kw)
+        return row, u[torch.tensor([1, 0] + list(range(2, u.shape[0])))]
+    return run
+
+
+@pytest.mark.parametrize("name,wrong", [
+    ("extend_candidates", _wrong_candidates),
+    ("extend_count", _wrong_count),
+    ("extend_scatter", _wrong_scatter)])
+def test_checks_stop_at_a_wrong_kernel(monkeypatch, name, wrong):
+    smoke = _smoke()
+    g, expected = _graph_and_counts(smoke)
+    monkeypatch.setattr(ops, name, wrong(getattr(ops, name)))
+    with pytest.raises(AssertionError, match=f"{name}.*plain version"):
+        smoke.checked_runs(g, APPS, expected, "cpu", chunk=512)

@@ -1,0 +1,104 @@
+"""PyTorch port on the card: each CUDA kernel against its plain PyTorch
+version on the same CUDA tensors, and the cuda backend's counts against
+the plain backend's.
+
+Every test here is marked ``gpu`` and skips without a CUDA device.  The
+file imports neither JAX nor the JAX package, so it runs on a machine that
+has only PyTorch and the CUDA toolkit:
+
+    PYTHONPATH=src python -m pytest --noconftest -m gpu \
+        tests/test_torch_gpu_kernels.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import Miner, make_cf_app, make_tc_app
+from repro_torch.core.api import PredicateSpec, resolve_kernel_predicate
+from repro_torch.graph import generators as TG
+from repro_torch.graph.csr import pack_adjacency
+from repro_torch.kernels.extend_fused import ops, ref
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _inputs(device, conn_mode, seed=5, n=60, n_emb=120, k=3):
+    """Kernel inputs for random parent embeddings on an ER graph."""
+    g = TG.erdos_renyi(n, 0.3, seed=seed, device=device)
+    rng = np.random.default_rng(seed)
+    emb = torch.from_numpy(rng.integers(-1, n, size=(n_emb, k)).astype(
+        np.int32)).to(device)
+    embc = emb.clamp(0, n - 1).reshape(-1).long()
+    vlo, vhi = g.row_ptr[embc], g.row_ptr[embc + 1]
+    deg = torch.where(emb.reshape(-1) >= 0, vhi - vlo, 0).to(torch.int32)
+    offsets = torch.cumsum(deg, 0, dtype=torch.int32)
+    args = (g.col_idx, offsets, offsets - deg, emb.reshape(-1).contiguous(),
+            vlo, vhi)
+    if conn_mode == "bitmap":
+        pg = pack_adjacency(g)
+        bits, n_words = pg.words.reshape(-1), pg.n_words
+    else:
+        bits, n_words = torch.zeros(1, dtype=torch.int32, device=device), 1
+    n_steps = int(np.ceil(np.log2(g.max_degree + 1)))
+    return g, args, bits, n_words, n_steps, int(offsets[-1])
+
+
+def _plain_pruned(*args, out_cap, **kw):
+    counts = ref.extend_count_ref(*args, **kw)
+    incl = torch.cumsum(counts, 0, dtype=torch.int32)
+    row, u = ref.extend_scatter_ref(*args, incl - counts, out_cap=out_cap,
+                                    **kw)
+    return row, u, incl[-1], counts
+
+
+def test_extend_candidates_matches_plain(cuda):
+    g, args, _, _, n_steps, total = _inputs(cuda, "search")
+    for cand_cap in (total + 300, max(total // 3, 1)):
+        kw = dict(k=3, cand_cap=cand_cap, n_steps=n_steps)
+        ops.reset_counts()
+        got = ops.extend_candidates(*args, **kw)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["extend_candidates"] == 1
+        for a, b in zip(got, ref.extend_candidates_ref(*args, **kw)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("conn_mode", ["bitmap", "search"])
+@pytest.mark.parametrize("spec_name", ["clique", "alive", "dead",
+                                       "straddle"])
+def test_pruned_pair_matches_plain(cuda, conn_mode, spec_name):
+    g, args, bits, n_words, n_steps, total = _inputs(cuda, conn_mode)
+    spec = {"clique": resolve_kernel_predicate(make_cf_app(4), 3),
+            "alive": PredicateSpec(), "dead": PredicateSpec(src_slot_eq=3),
+            "straddle": PredicateSpec(src_slot_eq=0)}[spec_name]
+    for out_cap in (total + 7, 100):                 # roomy, overflow
+        kw = dict(k=3, cand_cap=total + 300, out_cap=out_cap,
+                  n_steps=n_steps, n_vertices=g.n_vertices,
+                  n_words=n_words, spec=spec, conn_mode=conn_mode)
+        ops.reset_counts()
+        got = ops.extend_pruned(*args, bits, **kw)
+        torch.cuda.synchronize()
+        assert list(ops.LAUNCHES.values()) == [0, 1, 1]
+        assert [f.calls for f in ops.PLAIN_VERSIONS] == [0, 0, 0]
+        for a, b in zip(got, _plain_pruned(*args, bits, **kw)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("make_app", [make_tc_app, lambda: make_cf_app(4)],
+                         ids=["tc", "4-cf"])
+def test_cuda_miner_matches_plain_backend(cuda, make_app):
+    g = TG.rmat(10, 16, seed=0, device=cuda)
+    want = Miner(g, make_app(), backend="torch-ref", device=cuda).run().count
+    m = Miner(g, make_app(), backend="cuda", device=cuda)
+    ops.reset_counts()
+    assert m.run().count == want                      # cold
+    assert m.run().count == want                      # warm
+    assert min(ops.LAUNCHES.values()) >= 1
+    assert sum(f.calls for f in ops.PLAIN_VERSIONS) == 0
