@@ -24,7 +24,17 @@ Phases (any failure raises, and the script exits non-zero):
               cold, then warm, for TC and 4-CF.  Each count must equal an
               independent count computed here on the host with scipy, every
               kernel must have launched during the run, and no plain version
-              may have run.
+              may have run.  Then a warm-run profile of each.
+5. fsm      — 3-FSM (``make_fsm_app(3, min_support, max_patterns=64)``),
+              edge-induced, on the edge kernel ``extend_edge``.  Checked
+              runs (every launch against its plain version, cold and warm)
+              on ``rmat(12, 8, seed=0, labels=4)`` at a min_support that
+              drops one label, and on the main graph ``rmat(15, 8, seed=0,
+              labels=4)`` at 2500.  Then the kernel's timing on the main
+              graph's level-2 launch, the counted main path on the main
+              graph (frequent supports equal to a scipy count, 2 launches
+              cold and 1 warm, no plain call, the warm replay free of
+              device syncs up to its final read), and a warm-run profile.
 
 The line before the last two is the kernels' JSON record; the line before
 the last is ``nvidia-smi``'s name and power limit; the last line is
@@ -33,6 +43,7 @@ repository around this file, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -48,6 +59,9 @@ KERNEL_SOURCE = "src/repro_torch/kernels/extend_fused/csrc/extend.cu"
 REPLACES = {"extend_candidates": f"{TPU_KERNEL}:65",
             "extend_count": f"{TPU_KERNEL}:505",
             "extend_scatter": f"{TPU_KERNEL}:519"}
+EDGE_REPLACES = {"extend_edge": f"{TPU_KERNEL}:658"}
+FSM_SUPPORT = 2500              # main FSM configuration's min_support
+FSM_FREQUENT = 24               # its frequent 3-FSM patterns
 
 
 def log(msg: str) -> None:
@@ -106,22 +120,28 @@ class KernelChecks:
     replayed with half its ``out_cap`` (an overflow case) and held against
     the plain version at that capacity.  While ``keep`` is set, the first
     launch of each kernel keeps its arguments (``kept``) for timing.
+    ``names`` are the kernels checked.  Each ``extend_edge`` launch also
+    records ``(cand_cap, candidates, survivors, masked)`` in
+    ``edge_levels``, ``masked`` counting the live candidates that the
+    app's vertex mask dropped.
     """
 
-    def __init__(self, chunk: int = 1 << 25):
+    def __init__(self, chunk: int = 1 << 25, names=tuple(REPLACES)):
         from repro_torch.kernels.extend_fused import ref
         assert chunk % ref.BLOCK_C == 0
         self.chunk = chunk
-        self.err = {name: 0 for name in REPLACES}
-        self.launches = {name: 0 for name in REPLACES}
+        self.names = tuple(names)
+        self.err = {name: 0 for name in self.names}
+        self.launches = {name: 0 for name in self.names}
         self.modes: set[str] = set()
         self.overflow_cases = 0
+        self.edge_levels: list[tuple[int, int, int, int]] = []
         self.kept: dict = {}
         self.keep = False
 
     def __enter__(self):
         from repro_torch.kernels.extend_fused import ops
-        self._saved = {name: getattr(ops, name) for name in REPLACES}
+        self._saved = {name: getattr(ops, name) for name in self.names}
         for name, fn in self._saved.items():
             setattr(ops, name, self._checked(name, fn))
         return self
@@ -144,8 +164,9 @@ class KernelChecks:
                 self.kept[name] = (a, kw)
             if err:
                 raise AssertionError(
-                    f"{name} (cand_cap={kw['cand_cap']}, k={kw['k']}) "
-                    f"differs from its plain version by {err}")
+                    f"{name} (cand_cap={kw['cand_cap']}, k="
+                    f"{kw.get('k', kw.get('n_slots'))}) differs from its "
+                    f"plain version by {err}")
             return got
         return run
 
@@ -199,6 +220,19 @@ class KernelChecks:
         over = self._saved["extend_scatter"](*a, **{**kw, "out_cap": small})
         return max(err, self._scatter_err(a, kw, over, small))
 
+    def _check_extend_edge(self, a, kw, got) -> int:
+        from repro_torch.kernels.extend_fused import ref
+        err = 0
+        for lo, hi in self._ranges(kw["cand_cap"]):
+            want = ref.extend_edge_ref(*a, **kw, slots=(lo, hi))
+            err = max(err, max_abs_err([g[lo:hi] for g in got], want))
+        u, vmask = got[2], a[9]
+        masked = (0 if vmask is None else
+                  int(((u >= 0) & (vmask[u.clamp(min=0).long()] == 0)).sum()))
+        self.edge_levels.append((kw["cand_cap"], int(a[2][-1]),
+                                 int(got[4].sum()), masked))
+        return err
+
     def report(self, label: str) -> None:
         log(f"[check] {label}: launches {self.launches}, modes "
             f"{sorted(self.modes)}, overflow cases {self.overflow_cases}, "
@@ -243,6 +277,9 @@ def bytes_moved(name: str, a, kw) -> int:
     """Compulsory bytes of one launch: each input read once, each output
     written once."""
     from repro_torch.kernels.extend_fused import ref
+    if name == "extend_edge":            # every tensor argument is an input
+        inputs = sum(t.numel() * 4 for t in a if t is not None)
+        return inputs + 5 * kw["cand_cap"] * 4
     offsets, col, cand_cap = a[1], a[0], kw["cand_cap"]
     parents = 5 * offsets.shape[0] * 4
     if name == "extend_candidates":
@@ -264,9 +301,10 @@ def time_kernels(kept: dict) -> dict:
 
     plain = {"extend_candidates": ref.extend_candidates_ref,
              "extend_count": ref.extend_count_ref,
-             "extend_scatter": ref.extend_scatter_ref}
+             "extend_scatter": ref.extend_scatter_ref,
+             "extend_edge": ref.extend_edge_ref}
     rows = {}
-    for name in REPLACES:
+    for name in kept:
         a, kw = kept[name]
         ms, got = cuda_ms(lambda: getattr(ops, name)(*a, **kw), reps=10)
         plain_ms, want = cuda_ms(lambda: plain[name](*a, **kw), reps=2)
@@ -278,7 +316,8 @@ def time_kernels(kept: dict) -> dict:
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                       "max_abs_err": err}
-        log(f"[timing] {name} (cand_cap={kw['cand_cap']}, k={kw['k']}): "
+        log(f"[timing] {name} (cand_cap={kw['cand_cap']}, k="
+            f"{kw.get('k', kw.get('n_slots'))}): "
             f"{ms:.3f} ms (plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
             f"from {nbytes} B), max_abs_err {err}")
         if err:
@@ -321,7 +360,7 @@ def main_path(graph, expected: dict) -> dict:
     from repro_torch.core import Miner, make_cf_app, make_tc_app
     from repro_torch.kernels.extend_fused import ops
 
-    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    launches = dict.fromkeys(REPLACES, 0)
     for name, app in (("tc", make_tc_app()), ("4-cf", make_cf_app(4))):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -349,12 +388,159 @@ def main_path(graph, expected: dict) -> dict:
         if plain:
             raise AssertionError(f"{name}: plain versions ran {plain} times "
                                  "on the main path")
-        if min(got.values()) < 1:
+        if min(got[k] for k in REPLACES) < 1:
             raise AssertionError(f"{name}: a kernel never launched: {got}")
-        for k, v in got.items():
-            launches[k] += v
+        for k in REPLACES:
+            launches[k] += got[k]
         del miner
     return launches
+
+
+# ---------------------------------------------------------------------------
+# FSM: the edge-induced path
+
+
+def scipy_fsm(graph, min_support: int):
+    """MNI supports of 3-FSM on ``graph``, counted on the host with scipy.
+
+    A 3-FSM pattern is a labeled wedge: center label c, end labels {a, b}.
+    Its centers C are the vertices of label c with a neighbour of label a
+    and one of label b (two of label a when a = b); an end's domain is the
+    vertices of its label adjacent to C; the support is the least of the
+    three domains.  Returns (sorted supports of the frequent wedges, the
+    single-edge supports, the label frequencies).
+    """
+    import numpy as np
+    import scipy.sparse as sp
+
+    rp = graph.row_ptr.cpu().numpy().astype(np.int64)
+    ci = graph.col_idx.cpu().numpy().astype(np.int64)
+    lab = graph.labels.cpu().numpy()
+    n = rp.shape[0] - 1
+    adj = sp.csr_matrix((np.ones(ci.shape[0], dtype=np.int64), ci, rp),
+                        shape=(n, n))
+    n_labels = int(lab.max()) + 1
+    is_lab = [lab == a for a in range(n_labels)]
+    nbrs = [adj @ is_lab[a].astype(np.int64) for a in range(n_labels)]
+    edges, wedges = {}, []
+    for a in range(n_labels):
+        for b in range(a, n_labels):
+            edges[(a, b)] = min(int((is_lab[a] & (nbrs[b] > 0)).sum()),
+                                int((is_lab[b] & (nbrs[a] > 0)).sum()))
+            for c in range(n_labels):
+                if a == b:
+                    centers = is_lab[c] & (nbrs[a] >= 2)
+                else:
+                    centers = is_lab[c] & (nbrs[a] > 0) & (nbrs[b] > 0)
+                near = (adj @ centers.astype(np.int64)) > 0
+                wedges.append(min(int(centers.sum()),
+                                  int((is_lab[a] & near).sum()),
+                                  int((is_lab[b] & near).sum())))
+    freq = [int(x.sum()) for x in is_lab]
+    return sorted(s for s in wedges if s >= min_support), edges, freq
+
+
+def frequent_supports(result, min_support: int) -> list[int]:
+    import numpy as np
+    keep = (result.supports >= min_support) & (result.codes != np.int32(
+        2**31 - 1))
+    return sorted(int(x) for x in result.supports[keep])
+
+
+def fsm_checked(graph, min_support: int, label: str, keep: bool = False,
+                chunk: int = 1 << 25):
+    """Cold then warm 3-FSM on the cuda backend with every edge-kernel
+    launch held against its plain version, and the frequent supports
+    against the scipy count.  Returns the checks and the labels the app's
+    vertex mask dropped."""
+    import torch
+    from repro_torch.core import Miner, make_fsm_app
+
+    want, _, _ = scipy_fsm(graph, min_support)
+    checks = KernelChecks(chunk, names=tuple(EDGE_REPLACES))
+    checks.keep = keep
+    with checks:
+        miner = Miner(graph, make_fsm_app(3, min_support, max_patterns=64),
+                      backend="cuda", device=graph.device)
+        for run in ("cold", "warm"):
+            got = frequent_supports(miner.run(), min_support)
+            if got != want:
+                raise AssertionError(f"{label} {run}: supports {got} != "
+                                     f"scipy {want}")
+    mask = miner.ops.app.to_add_vertex_mask(miner.ctx)
+    dropped = sorted(set(graph.labels[~mask].tolist()))
+    checks.report(label)
+    log(f"[check] {label}: {len(want)} frequent patterns, labels dropped by "
+        f"the mask {dropped}, level-2 launches (cand_cap, candidates, "
+        f"survivors, masked) {checks.edge_levels}")
+    if checks.launches["extend_edge"] != 3:
+        raise AssertionError(f"{label}: {checks.launches} launches, not 3")
+    del miner
+    if graph.device.type == "cuda":
+        torch.cuda.empty_cache()
+    return checks, dropped
+
+
+def fsm_main_path(graph, min_support: int, want: list[int]) -> int:
+    """Cold then warm 3-FSM through ``Miner.run`` on the cuda backend, the
+    launches counted; then the warm replay re-run up to its final read with
+    device syncs made errors.  Returns the run's ``extend_edge`` launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core import Miner, make_fsm_app
+    from repro_torch.kernels.extend_fused import ops
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    miner = Miner(graph, make_fsm_app(3, min_support, max_patterns=64),
+                  backend="cuda")
+    times, results, launches = {}, {}, {}
+    for run in ("cold", "warm"):
+        before = ops.LAUNCHES["extend_edge"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[run] = miner.run()
+        torch.cuda.synchronize()
+        times[run] = time.perf_counter() - t0
+        launches[run] = ops.LAUNCHES["extend_edge"] - before
+        if run == "cold":          # the cold run returns its levels
+            level1 = int(results[run].levels[0].n)
+            results[run].levels = None
+    plain = sum(fn.calls for fn in ops.PLAIN_VERSIONS)
+    peak = torch.cuda.max_memory_allocated()
+    (ex,) = miner._executors.values()
+    log(f"[main] 3-fsm: cold {results['cold'].count} patterns in "
+        f"{times['cold']:.3f} s, warm {results['warm'].count} in "
+        f"{times['warm']:.3f} s, plan caps {list(ex.plan.caps)} filter caps "
+        f"{list(ex.plan.filter_caps)}, replans {ex.n_replans}, peak {peak} B, "
+        f"launches {launches}, plain calls {plain}, level 1 {level1} edges")
+    for run, r in results.items():
+        got = frequent_supports(r, min_support)
+        if got != want or r.count != FSM_FREQUENT:
+            raise AssertionError(f"3-fsm {run}: {r.count} patterns, supports "
+                                 f"{got} != scipy {want}")
+    if level1 != miner.ctx.n_uedges:
+        raise AssertionError(f"level 1 kept {level1} of "
+                             f"{miner.ctx.n_uedges} edges")
+    if launches != {"cold": 2, "warm": 1} or plain:
+        raise AssertionError(f"3-fsm: launches {launches}, plain {plain}")
+    count = sum(launches.values())
+    # the warm replay up to its final read, with every device sync an error
+    n = torch.tensor(miner.ctx.n_uedges, dtype=torch.int32, device="cuda")
+    args = miner.edge_worklist()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, supports, _ = ex._run_once(*args, n)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not np.array_equal(supports.cpu().numpy(), results["warm"].supports):
+        raise AssertionError("3-fsm: the sync-checked replay differs")
+    log("[main] 3-fsm: the warm replay made no device sync before its "
+        "final read")
+    del miner
+    return count
 
 
 def profile_warm(graph, app, label: str) -> None:
@@ -397,8 +583,9 @@ def main() -> int:
         print("chip_smoke: torch is not installed", file=sys.stderr)
         return 2
     try:
+        import numpy as np
         from repro_torch.graph.generators import rmat
-        from repro_torch.core import make_cf_app, make_tc_app
+        from repro_torch.core import make_cf_app, make_fsm_app, make_tc_app
         from repro_torch.kernels import build
         from repro_torch.kernels.extend_fused import ops
     except ImportError as exc:
@@ -452,14 +639,64 @@ def main() -> int:
     launches = main_path(g16, expected)
     profile_warm(g16, make_tc_app(), "rmat16 tc")
     profile_warm(g16, make_cf_app(4), "rmat16 4-cf")
+    del g16
+    torch.cuda.empty_cache()
+
+    # FSM, the edge-induced path: every launch checked at scale 12 with a
+    # min_support that makes the label mask drop one label, then at the
+    # main size, keeping the level-2 launch for timing
+    t_fsm = time.perf_counter()
+    g12l = rmat(12, 8, seed=0, labels=4)
+    for skewed in (False, True):
+        if skewed:
+            # with four even labels, no pattern passes level 1 once a label
+            # is rare enough to drop, so level 2 has no live candidate;
+            # fold 7 in 8 vertices of label 3 into label 0, and the mask
+            # drops label 3 while the other patterns stay frequent
+            lab = g12l.labels
+            fold = (lab == 3) & (torch.arange(lab.shape[0],
+                                              device=lab.device) % 8 != 0)
+            g12l = dataclasses.replace(g12l, labels=torch.where(fold, 0, lab))
+        ms12 = min(scipy_fsm(g12l, 0)[2]) + 1
+        checks, dropped = fsm_checked(
+            g12l, ms12, f"rmat12 3-fsm ms={ms12}{' skewed' * skewed}")
+        live = checks.edge_levels[0]
+        if len(dropped) != 1 or (skewed and min(live[1], live[3]) < 1):
+            raise AssertionError(f"rmat12 3-fsm: the mask dropped labels "
+                                 f"{dropped}, level 2 {live}")
+    g15 = rmat(15, 8, seed=0, labels=4)
+    want15, edges15, freq15 = scipy_fsm(g15, FSM_SUPPORT)
+    deg = g15.degrees().cpu().numpy().astype(np.int64)
+    n_cand, n_wedges = int((deg * deg).sum()), int((deg * (deg - 1) // 2)
+                                                   .sum())
+    log(f"[graph] rmat(15, 8, seed=0, labels=4): {g15.n_vertices} vertices, "
+        f"{g15.n_edges // 2} undirected edges, max degree {int(deg.max())}, "
+        f"label frequencies {freq15}, edge supports "
+        f"{sorted(edges15.values())}, level 2: {n_cand} candidates, "
+        f"{n_wedges} wedges")
+    log(f"[scipy] 3-fsm at {FSM_SUPPORT}: {len(want15)} frequent, supports "
+        f"{want15}")
+    checks15, _ = fsm_checked(g15, FSM_SUPPORT, "rmat15 3-fsm", keep=True)
+    for cand_cap, total, surv, _ in checks15.edge_levels:
+        if (total, surv) != (n_cand, n_wedges):
+            raise AssertionError(f"rmat15 level 2: {total} candidates and "
+                                 f"{surv} survivors at cand_cap {cand_cap}")
+    timing.update(time_kernels(checks15.kept))
+    checks15.kept.clear()
+    torch.cuda.empty_cache()
+    launches["extend_edge"] = fsm_main_path(g15, FSM_SUPPORT, want15)
+    profile_warm(g15, make_fsm_app(3, FSM_SUPPORT, max_patterns=64),
+                 "rmat15 3-fsm")
+    log(f"[fsm] phase {time.perf_counter() - t_fsm:.1f} s")
 
     kernels = []
-    for name in REPLACES:
+    errs = {**checks16.err, **checks15.err}
+    for name, replaces in {**REPLACES, **EDGE_REPLACES}.items():
         t = timing[name]
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": max(checks16.err[name], t["max_abs_err"]),
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(errs[name], t["max_abs_err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": "bytes",
             "library_ms": None})

@@ -19,6 +19,7 @@ import dataclasses
 import math
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.graph.csr import (CSRGraph, PackedGraph, pack_adjacency,
@@ -37,6 +38,12 @@ class GraphCtx:
     n_edges: int
     n_steps: int                   # binary search depth, ceil log2 max degree
     packed: Optional[PackedGraph] = None   # full bit-packed adjacency
+    n_labels: int = 1
+    # edge-induced support: undirected edge ids
+    edge_uid: Optional[torch.Tensor] = None   # int32[m] uid per directed edge
+    usrc: Optional[torch.Tensor] = None       # int32[m/2] endpoints per uid
+    udst: Optional[torch.Tensor] = None
+    n_uedges: int = 0
 
     @property
     def device(self) -> torch.device:
@@ -56,22 +63,44 @@ class GraphCtx:
         return self.row_ptr[v + 1] - self.row_ptr[v]
 
 
-def make_ctx(g: CSRGraph, pack_max_bytes: int = 4 << 20) -> GraphCtx:
+def make_ctx(g: CSRGraph, pack_max_bytes: int = 4 << 20,
+             with_edge_uids: bool = False) -> GraphCtx:
     """GraphCtx from a CSR graph (host-side preprocessing).
 
     Attaches the full bit-packed adjacency when every row fits under
     ``pack_max_bytes``, and no pack otherwise (connectivity then binary
     searches the CSR; ``pack_max_bytes=0`` forces that) — the JAX default.
     The opt-in partial and core packs are not ported yet.
+    ``with_edge_uids`` builds the undirected edge-id table of the
+    edge-induced pipeline, on the host with int64 keys, as JAX does.
     """
     n_steps = max(1, math.ceil(math.log2(max(g.max_degree, 1) + 1)))
+    n_labels = (int(g.labels.max().item()) + 1
+                if g.labels is not None and g.n_vertices else 1)
+    edge_uid = usrc = udst = None
+    n_uedges = 0
+    if with_edge_uids:
+        src, dst = (t.cpu().numpy() for t in g.edge_list())
+        lo = np.minimum(src, dst).astype(np.int64)
+        hi = np.maximum(src, dst).astype(np.int64)
+        key = lo * np.int64(g.n_vertices) + hi
+        uniq, inv = np.unique(key, return_inverse=True)
+        dev = g.device
+        edge_uid = torch.from_numpy(inv.reshape(-1).astype(np.int32)).to(dev)
+        usrc = torch.from_numpy((uniq // g.n_vertices).astype(np.int32)).to(
+            dev)
+        udst = torch.from_numpy((uniq % g.n_vertices).astype(np.int32)).to(
+            dev)
+        n_uedges = int(uniq.shape[0])
     packed = None
     n_words = -(-max(g.n_vertices, 1) // 32)
     if g.n_vertices * n_words * 4 <= pack_max_bytes:
         packed = pack_adjacency(g, max_bytes=pack_max_bytes)
     return GraphCtx(row_ptr=g.row_ptr, col_idx=g.col_idx, labels=g.labels,
                     n_vertices=g.n_vertices, n_edges=g.n_edges,
-                    n_steps=n_steps, packed=packed)
+                    n_steps=n_steps, packed=packed, n_labels=n_labels,
+                    edge_uid=edge_uid, usrc=usrc, udst=udst,
+                    n_uedges=n_uedges)
 
 
 # ---------------------------------------------------------------------------
@@ -99,6 +128,30 @@ def is_auto_canonical_vertex(ctx: GraphCtx, emb: torch.Tensor,
         ok = ok & (u != emb[:, j])
         if src_slot is not None:
             ok = ok & ~(adj & (j < src_slot))
+    return ok & found
+
+
+def is_auto_canonical_edge(ctx: GraphCtx, eids: torch.Tensor,
+                           new_eid: torch.Tensor, new_src: torch.Tensor,
+                           new_dst: torch.Tensor, e_src: torch.Tensor,
+                           e_dst: torch.Tensor) -> torch.Tensor:
+    """Edge-induced canonical extension test over undirected edge ids.
+
+    eids: int32[N, E] existing edge uids (extension order); new_eid:
+    int32[N]; (new_src, new_dst): endpoints of the candidate; (e_src,
+    e_dst): int32[N, E] endpoints of the existing edges.  The rule of the
+    vertex case, with "neighbour" = shares an endpoint.
+    """
+    E = eids.shape[1]
+    ok = new_eid > eids[:, 0]
+    found = torch.zeros(new_eid.shape, dtype=torch.bool,
+                        device=new_eid.device)
+    for j in range(E):
+        shares = ((new_src == e_src[:, j]) | (new_src == e_dst[:, j])
+                  | (new_dst == e_src[:, j]) | (new_dst == e_dst[:, j]))
+        ok = ok & ~(found & (new_eid < eids[:, j]))
+        found = found | shares
+        ok = ok & (new_eid != eids[:, j])
     return ok & found
 
 
@@ -180,15 +233,20 @@ class MiningApp:
     Hook signatures (vectorised; N = candidate or embedding batch):
       to_extend(ctx, emb[N,k])                           -> bool[N,k]
       to_add(ctx, emb[N,k], u[N], src_slot[N], state[N]) -> bool[N]
+      to_add_vertex_mask(ctx)                            -> bool[n_vertices]
     ``to_add_spec`` is the kernel-readable form of the eager ``toAdd``,
-    one :class:`PredicateSpec` per level.  The other fields are the
-    capacity-plan identity and carry the JAX package's names and defaults,
-    so a plan recorded by either package keys the same way.
+    one :class:`PredicateSpec` per level.  ``to_add_vertex_mask`` is the
+    edge pipeline's eager ``toAdd`` when it depends only on the candidate
+    vertex (FSM's label-frequency prune); the edge kernel gathers it per
+    candidate.  The other fields are the capacity-plan identity and carry
+    the JAX package's names and defaults, so a plan recorded by either
+    package keys the same way.
 
-    Not ported yet: the reduce phase (``needs_reduce``), the state column
-    (``update_state_kernel``), edge-induced apps (``kind="edge"``).  The
-    engine and backends raise NotImplementedError for an app that asks
-    for them.
+    Edge-induced apps (``kind="edge"``) run with ``needs_filter``,
+    ``support_mode="domain"`` and ``min_support`` (FSM).  Not ported yet:
+    the count reduce of vertex apps (``needs_reduce``) and the state
+    column (``update_state_kernel``); the engine and backends raise
+    NotImplementedError for an app that asks for them.
     """
 
     name: str
@@ -203,6 +261,7 @@ class MiningApp:
     to_extend: Optional[Callable] = None
     to_add: Optional[Callable] = None
     to_add_spec: Optional[tuple[PredicateSpec, ...]] = None
+    to_add_vertex_mask: Optional[Callable] = None
     update_state_kernel: Optional[Callable] = None
     directed_worklist: bool = False
     plan_key: str = ""

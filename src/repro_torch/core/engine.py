@@ -1,17 +1,19 @@
-"""Execution engine, vertex half (paper Alg. 1; counterpart of
-``repro.core.engine``).
+"""Execution engine (paper Alg. 1: extend -> reduce -> filter per level;
+counterpart of ``repro.core.engine``).
 
-There is one level loop, :func:`run_level_loop`, and a capacity policy
-decides how each level's static capacities are obtained: the cold
-:meth:`Miner.run` inspects every level on the host (``HostCapPolicy``) and
-records a :class:`~repro_torch.core.plan.MiningPlan`; later runs replay it
+There is one level loop, :func:`run_level_loop`, shared by the vertex- and
+edge-induced pipeline adapters, and a capacity policy decides how each
+level's static capacities are obtained: the cold :meth:`Miner.run`
+inspects every level on the host (``HostCapPolicy``) and records a
+:class:`~repro_torch.core.plan.MiningPlan`; later runs replay it
 (``PlanCapPolicy``) through :class:`~repro_torch.core.plan.MiningExecutor`
 without a host read until the end.  Every phase op resolves through the
 backend registry (:mod:`repro_torch.core.phases`).
 
-Not ported yet: edge-induced mining, edge blocks, the sampled estimator and
-the plan cache, reduce hooks, and the observability spans and metrics of
-``repro.obs``.
+Not ported yet: edge blocks, the sampled estimator and the plan cache, the
+count reduce of vertex apps, bounded and sharded mining
+(``bounded_mine_edge``, the sharded FSM reduce), and the observability
+spans and metrics of ``repro.obs``.
 """
 from __future__ import annotations
 
@@ -20,13 +22,16 @@ import hashlib
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.api import GraphCtx, MiningApp, make_ctx
 from repro_torch.core.embedding_list import (EmbeddingLevel,
+                                             init_level0_edge,
                                              init_level0_vertex, materialize,
-                                             total_bytes)
+                                             materialize_edges, total_bytes)
 from repro_torch.core.phases import BackendSpec, get_backend
+from repro_torch.core.phases.reference import INT_MAX
 from repro_torch.core.plan import HostCapPolicy, MiningExecutor, bucket_pow2
 from repro_torch.device import DeviceSpec, resolve_device
 from repro_torch.graph.csr import CSRGraph
@@ -47,18 +52,25 @@ class LevelStats:
 @dataclasses.dataclass
 class MineResult:
     count: int
+    codes: Optional[np.ndarray] = None          # canonical codes (FSM)
+    supports: Optional[np.ndarray] = None       # MNI supports (FSM)
     stats: list[LevelStats] = dataclasses.field(default_factory=list)
     levels: Optional[list[EmbeddingLevel]] = None
 
 
 class _PhaseOps:
-    """Backend phase ops bound to one (ctx, app, backend) triple."""
+    """Backend phase ops bound to one (ctx, app, backend) triple.
+
+    An edge app's ``to_add_vertex_mask`` hook runs here, once: the backend
+    is handed an app whose hook returns that tensor at every level.
+    """
 
     def __init__(self, ctx: GraphCtx, app: MiningApp, backend,
                  fuse_filter: bool = True):
-        if app.kind != "vertex":
-            raise NotImplementedError(
-                f"app {app.name!r}: edge-induced mining is not ported yet")
+        if app.kind == "edge" and app.to_add_vertex_mask is not None:
+            vmask = app.to_add_vertex_mask(ctx)
+            app = dataclasses.replace(app,
+                                      to_add_vertex_mask=lambda _ctx: vmask)
         self.ctx, self.app, self.backend = ctx, app, backend
         self.fuse_filter = fuse_filter
 
@@ -77,6 +89,25 @@ class _PhaseOps:
                                           cand_cap, out_cap,
                                           fuse_filter=self.fuse_filter)
 
+    # -- edge-induced
+    def bound_e(self, v0, vid, his, n):
+        return self.backend.candidate_bound_edge(self.ctx, self.app, v0, vid,
+                                                 his, n)
+
+    def inspect_e(self, v0, vid, his, eid, n, *, cand_cap):
+        return self.backend.inspect_edge(self.ctx, self.app, v0, vid, his,
+                                         eid, n, cand_cap)
+
+    def extend_e(self, v0, vid, his, eid, n, *, cand_cap, out_cap):
+        return self.backend.extend_edge(self.ctx, self.app, v0, vid, his,
+                                        eid, n, cand_cap, out_cap)
+
+    def reduce_e(self, levels):
+        return self.backend.reduce_domain(self.ctx, self.app, levels)
+
+    def filter_e(self, levels, keep, *, out_cap):
+        return self.backend.filter_levels(levels, keep, out_cap)
+
 
 class _VertexPipeline:
     """Vertex-induced frontier: emb matrix + memo state."""
@@ -94,6 +125,9 @@ class _VertexPipeline:
 
     def level_range(self):
         return range(2, self.ops.app.max_size)
+
+    def pre_loop(self, policy):
+        return None
 
     def frontier_nbytes(self) -> int:
         return self.emb.numel() * self.emb.element_size()
@@ -121,6 +155,102 @@ class _VertexPipeline:
     def result(self, stats) -> MineResult:
         return MineResult(count=int(self.n), stats=stats, levels=self.levels)
 
+    def bounded_result(self, policy):
+        """The replay's device results: (count, overflowed)."""
+        return self.n, policy.overflow()
+
+
+def _frequent(app: MiningApp, codes: np.ndarray,
+              supports: np.ndarray) -> int:
+    """How many patterns of an FSM result are frequent."""
+    return int(((supports >= app.min_support) & (codes != INT_MAX)).sum())
+
+
+class _EdgePipeline:
+    """Edge-induced frontier: (v0, vid, his, eid), domain reduce + filter.
+
+    The level-0 worklist defaults to the full undirected edge list of the
+    graph context; explicit ``(src, dst, eid, n)`` tensors are the
+    executor's padded worklist.
+    """
+
+    def __init__(self, ops: _PhaseOps, src=None, dst=None, eid=None,
+                 n=None):
+        self.ops = ops
+        ctx = ops.ctx
+        if src is None:
+            src, dst = ctx.usrc, ctx.udst
+            eid = torch.arange(ctx.n_uedges, dtype=torch.int32,
+                               device=ctx.device)
+            n = ctx.n_uedges
+        self.levels = init_level0_edge(src, dst, eid, n)
+        self.codes = self.supports = None
+        self._front = None        # frontier cache, one materialize per level
+
+    def level_range(self):
+        # k-FSM: patterns of max_size - 1 edges; level 1 is pre-loop
+        return range(2, self.ops.app.max_size)
+
+    def pre_loop(self, policy):
+        self._reduce_filter(policy)
+        return 1                  # the initial reduce+filter is "level 1"
+
+    def _frontier(self):
+        if self._front is None:
+            self._front = materialize_edges(self.levels)
+        return self._front
+
+    def frontier_nbytes(self) -> int:
+        """Bytes of the cached per-slot frontier expansion (0 if dropped)."""
+        if self._front is None:
+            return 0
+        return sum(a.numel() * a.element_size() for a in self._front)
+
+    def bound(self):
+        v0, vid, his, _ = self._frontier()
+        return self.ops.bound_e(v0, vid, his, self.levels[-1].n)
+
+    def inspect(self, cand_cap: int):
+        return self.ops.inspect_e(*self._frontier(), self.levels[-1].n,
+                                  cand_cap=cand_cap)
+
+    def extend(self, cand_cap: int, out_cap: int):
+        new_level, n_cand = self.ops.extend_e(
+            *self._frontier(), self.levels[-1].n, cand_cap=cand_cap,
+            out_cap=out_cap)
+        self.levels.append(new_level)
+        self._front = None
+        return n_cand, new_level.n
+
+    def reduce_filter(self, level: int, policy):
+        self._reduce_filter(policy)
+
+    def _reduce_filter(self, policy):
+        app = self.ops.app
+        codes, supports, pat, _ = self.ops.reduce_e(self.levels)
+        self.codes, self.supports = codes, supports
+        if app.needs_filter:
+            sup_of = supports[pat.clamp(0, app.max_patterns - 1).long()]
+            keep = sup_of >= app.min_support
+            live = torch.arange(keep.shape[0], dtype=torch.int32,
+                                device=keep.device) < self.levels[-1].n
+            n_keep = (keep & live).sum(dtype=torch.int32)
+            out_cap = policy.filter_cap(n_keep)
+            self.levels = self.ops.filter_e(self.levels, keep,
+                                            out_cap=out_cap)
+            self._front = None
+
+    def result(self, stats) -> MineResult:
+        codes = self.codes.cpu().numpy()
+        supports = self.supports.cpu().numpy()
+        return MineResult(count=_frequent(self.ops.app, codes, supports),
+                          codes=codes, supports=supports, stats=stats,
+                          levels=self.levels)
+
+    def bounded_result(self, policy):
+        """The replay's device results: (codes, supports, overflowed)."""
+        return self.codes, self.supports, policy.overflow()
+
 
 def run_level_loop(pipe, policy, collect_stats: bool = False
                    ) -> list[LevelStats]:
@@ -143,6 +273,10 @@ def run_level_loop(pipe, policy, collect_stats: bool = False
                                 nbytes, time.perf_counter() - t0,
                                 nbytes + pipe.frontier_nbytes()))
 
+    t0 = time.perf_counter()
+    pre_level = pipe.pre_loop(policy)
+    if collect_stats and pre_level is not None:
+        record(pre_level, 0, t0)
     for level in pipe.level_range():
         t0 = time.perf_counter()
         cand_cap, out_cap = policy.extend_caps(pipe)
@@ -174,7 +308,8 @@ class Miner:
         graph = graph.to(self.device)
         g = orient_dag(graph) if app.use_dag else graph
         self.graph = g
-        self.ctx = make_ctx(g, pack_max_bytes=pack_max_bytes)
+        self.ctx = make_ctx(g, pack_max_bytes=pack_max_bytes,
+                            with_edge_uids=(app.kind == "edge"))
         self.fuse_filter = fuse_filter
         self.ops = _PhaseOps(self.ctx, app, self.backend,
                              fuse_filter=fuse_filter)
@@ -183,12 +318,15 @@ class Miner:
         self._edges: Optional[tuple[torch.Tensor, torch.Tensor]] = None
 
     def graph_digest(self) -> str:
-        """Stable fingerprint of the (oriented) CSR arrays; the same bytes
-        as the JAX package hashes, so both compute the same digest."""
+        """Stable fingerprint of the (oriented) CSR arrays and the labels;
+        the same bytes as the JAX package hashes, so both compute the same
+        digest."""
         if self._digest is None:
             h = hashlib.sha1()
             h.update(self.graph.row_ptr.cpu().numpy().tobytes())
             h.update(self.graph.col_idx.cpu().numpy().tobytes())
+            if self.graph.labels is not None:   # FSM survivor counts
+                h.update(self.graph.labels.cpu().numpy().tobytes())
             self._digest = h.hexdigest()[:16]
         return self._digest
 
@@ -225,17 +363,46 @@ class Miner:
                 f"plan_source={plan_source!r} is not ported yet")
         if block_size:
             raise NotImplementedError("edge blocks are not ported yet")
+        if self.app.kind == "edge":
+            return self._run_edge(collect_stats)
         src, dst = self.init_edges()
         m = int(src.shape[0])
         cap0 = bucket_pow2(m)
         ex = self.executor(cap0)
         if collect_stats or not ex.has_plan:
-            pipe = _VertexPipeline(self.ops, src, dst, m)
-            policy = HostCapPolicy()
-            stats = run_level_loop(pipe, policy, collect_stats)
-            ex.adopt_plan(policy.caps)
-            return pipe.result(stats)
+            return self._host_run(_VertexPipeline(self.ops, src, dst, m),
+                                  ex, collect_stats)
         pad = cap0 - m
         src = torch.nn.functional.pad(src, (0, pad))
         dst = torch.nn.functional.pad(dst, (0, pad))
         return MineResult(count=ex.execute(src, dst, m))
+
+    def _host_run(self, pipe, executor: MiningExecutor,
+                  collect_stats: bool) -> MineResult:
+        """Inspection-execution host run; records the executor's plan."""
+        policy = HostCapPolicy()
+        stats = run_level_loop(pipe, policy, collect_stats)
+        executor.adopt_plan(policy.caps, policy.filter_caps)
+        return pipe.result(stats)
+
+    def edge_worklist(self):
+        """Level-0 worklist of the edge-induced replay: (src, dst, eid),
+        every undirected edge once, padded to the power-of-two ``cap0``."""
+        m = self.ctx.n_uedges
+        pad = (0, bucket_pow2(m) - m)
+        eid = torch.arange(m, dtype=torch.int32, device=self.device)
+        return tuple(torch.nn.functional.pad(t, pad)
+                     for t in (self.ctx.usrc, self.ctx.udst, eid))
+
+    def _run_edge(self, collect_stats: bool) -> MineResult:
+        """The edge-induced (FSM) path: the whole undirected edge list is
+        the level-0 worklist (the paper disables blocking for FSM)."""
+        m = self.ctx.n_uedges
+        cap0 = bucket_pow2(m)
+        ex = self.executor(cap0)
+        if collect_stats or not ex.has_plan:
+            return self._host_run(_EdgePipeline(self.ops), ex,
+                                  collect_stats)
+        codes, supports = ex.execute_edge(*self.edge_worklist(), m)
+        return MineResult(count=_frequent(self.app, codes, supports),
+                          codes=codes, supports=supports)

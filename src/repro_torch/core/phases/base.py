@@ -1,16 +1,21 @@
 """Phase-backend interface (counterpart of ``repro.core.phases.base``).
 
 The engine owns the per-level loop; a :class:`PhaseBackend` owns the set
-operations the loop composes.  This slice ports the vertex-induced EXTEND
-ops:
+operations the loop composes.  Ported so far:
 
   candidate_bound_vertex   cheap degree-sum upper bound
   inspect_vertex           exact (candidate, survivor) counts
   extend_vertex            produce the next SoA level
   extend_pruned            fused extend + filter + compaction with counts
                            (the warm-path op)
+  candidate_bound_edge     the same three for edge-induced levels
+  inspect_edge
+  extend_edge
+  reduce_domain            FSM reduce: canonical codes + MNI support
+  filter_levels            support-based compaction of the last level
 
-Reduce, filter and the edge-induced ops wait for later slices.
+The count reduce of vertex apps and the sharded FSM reduce wait for later
+slices.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.api import GraphCtx, MiningApp
+from repro_torch.core.embedding_list import EmbeddingLevel
 
 
 class PhaseBackend:
@@ -42,7 +48,8 @@ class PhaseBackend:
         return {"backend": self.name, "compaction": self.compaction,
                 "compaction_passes": self.compaction_passes,
                 "grid_contract": self.grid_contract,
-                "extend_vertex": "plain", "extend_pruned": "plain"}
+                "extend_vertex": "plain", "extend_pruned": "plain",
+                "extend_edge": "plain"}
 
     def candidate_bound_vertex(self, ctx: GraphCtx, app: MiningApp,
                                emb: torch.Tensor, n_valid: torch.Tensor,
@@ -72,6 +79,36 @@ class PhaseBackend:
         replay checks overflow without an inspection pass and without a
         host read.
         """
+        raise NotImplementedError
+
+    # -- EXTEND: edge-induced
+
+    def candidate_bound_edge(self, ctx, app, v0, vid, his, n_valid):
+        raise NotImplementedError
+
+    def inspect_edge(self, ctx, app, v0, vid, his, eid, n_valid,
+                     cand_cap: int):
+        raise NotImplementedError
+
+    def extend_edge(self, ctx, app, v0, vid, his, eid, n_valid,
+                    cand_cap: int, out_cap: int):
+        """Produce the next edge-induced level.
+
+        Returns ``(level, n_candidates)``, the fused-counts contract of
+        :meth:`extend_pruned` (survivors are ``level.n``).
+        """
+        raise NotImplementedError
+
+    # -- REDUCE / FILTER
+
+    def reduce_domain(self, ctx: GraphCtx, app: MiningApp,
+                      levels: list[EmbeddingLevel]):
+        """FSM reduce: ``(codes, supports, pat, pat_valid)``."""
+        raise NotImplementedError
+
+    def filter_levels(self, levels: list[EmbeddingLevel],
+                      keep: torch.Tensor, out_cap: int
+                      ) -> list[EmbeddingLevel]:
         raise NotImplementedError
 
     def __repr__(self) -> str:

@@ -1,6 +1,5 @@
-"""CUDA phase backend: vertex EXTEND on hand-written Hopper kernels
-(counterpart of ``repro.core.phases.pallas`` under the ``pallas_mp``
-contract).
+"""CUDA phase backend: EXTEND on hand-written Hopper kernels (counterpart
+of ``repro.core.phases.pallas`` under the ``pallas_mp`` contract).
 
 * ``_vertex_candidates`` (the cold inspection pass) runs the unpruned
   enumeration kernel ``extend_candidates`` and evaluates the app's
@@ -10,11 +9,17 @@ contract).
   except the tile counts' exclusive scan between the passes, so the
   compaction contract is ``two-pass-scan`` on a ``concurrent`` grid.
 
+* ``_edge_candidates`` (every edge level, cold inspection and extension)
+  runs ``extend_edge``: the ragged expansion, CSR and edge-uid gathers, the
+  canonical-edge test and the app's per-vertex eager mask in one kernel.
+
 Connectivity is probed from the full bit-packed adjacency when the graph
 has one (``bitmap``) and by CSR binary search otherwise (``search``).
 What the kernels cannot express raises NotImplementedError instead of
-running plain PyTorch: an app without a predicate spec, ``fuse_filter=
-False``, a partial or core pack, labels, a state-updating app.
+running plain PyTorch: a vertex app without a predicate spec, ``fuse_filter=
+False``, a partial or core pack, a state-updating app, an edge app with a
+general batch ``to_add`` and no per-vertex mask.  Labels are read by no
+ported predicate spec, so a labeled graph runs as the unlabeled one does.
 
 On CPU tensors the kernel wrappers run their plain versions, which is how
 the tests drive this backend without a card.
@@ -29,6 +34,8 @@ from repro_torch.core.phases.reference import (ReferenceBackend,
                                                _col_idx, _pad_empty_frontier,
                                                check_cand_cap,
                                                check_supported,
+                                               edge_ext_degrees,
+                                               edge_vertex_slots,
                                                vertex_ext_degrees)
 from repro_torch.kernels.extend_fused import ops
 
@@ -45,27 +52,38 @@ class CudaBackend(ReferenceBackend):
     compaction_passes = 2
     grid_contract = "concurrent"
 
+    @staticmethod
+    def _edge_fusible(app: MiningApp) -> bool:
+        """The edge kernel runs the canonical test and a per-vertex eager
+        mask; a general batch ``to_add`` hook it cannot run."""
+        return app.to_add is None or app.to_add_vertex_mask is not None
+
     def capabilities(self, app: MiningApp | None = None) -> dict:
         caps = super().capabilities(app)
         fused = "cuda-kernel"
-        if app is not None:
+        if app is None:
+            caps["extend_vertex"] = caps["extend_pruned"] = fused
+            caps["extend_edge"] = fused
+        elif app.kind == "vertex":
             ks = range(2, max(app.max_size, 3))
             if any(resolve_kernel_predicate(app, k) is None for k in ks):
                 fused = "unsupported:no-predicate-spec"
-        caps["extend_vertex"] = caps["extend_pruned"] = fused
+            caps["extend_vertex"] = caps["extend_pruned"] = fused
+            caps["extend_edge"] = "n/a"
+        else:
+            caps["extend_vertex"] = caps["extend_pruned"] = "n/a"
+            caps["extend_edge"] = (fused if self._edge_fusible(app)
+                                   else "unsupported:batch-to-add")
         return caps
 
     @staticmethod
-    def _spec(ctx: GraphCtx, app: MiningApp, k: int):
+    def _spec(app: MiningApp, k: int):
         check_supported(app)
         spec = resolve_kernel_predicate(app, k)
         if spec is None:
             raise NotImplementedError(
                 f"app {app.name!r} has no kernel predicate spec for k={k}; "
                 "the cuda backend runs only spec predicates")
-        if ctx.labels is not None:
-            raise NotImplementedError("in-kernel label gathers are not "
-                                      "ported yet")
         return spec
 
     @staticmethod
@@ -86,7 +104,7 @@ class CudaBackend(ReferenceBackend):
         check_cand_cap(cand_cap)
         emb, state = _pad_empty_frontier(emb, state)
         cap, k = emb.shape
-        spec = self._spec(ctx, app, k)
+        spec = self._spec(app, k)
         offsets, starts, vlo, vhi, total = self._kernel_inputs(
             ctx, app, emb, n_valid, state)
         row, u, src_slot, conn = ops.extend_candidates(
@@ -122,7 +140,7 @@ class CudaBackend(ReferenceBackend):
         check_cand_cap(cand_cap)
         emb, state = _pad_empty_frontier(emb, state)
         cap, k = emb.shape
-        spec = self._spec(ctx, app, k)
+        spec = self._spec(app, k)
         offsets, starts, vlo, vhi, total = self._kernel_inputs(
             ctx, app, emb, n_valid, state)
         pg = ctx.packed
@@ -147,3 +165,42 @@ class CudaBackend(ReferenceBackend):
         level = EmbeddingLevel(vid=vid, idx=idx, n=n_surv)
         new_emb = torch.cat([emb[idx.long()], vid[:, None]], dim=1)
         return level, new_emb, total
+
+    def _edge_candidates(self, ctx: GraphCtx, app: MiningApp, v0, vid, his,
+                         eid, n_valid: torch.Tensor, cand_cap: int):
+        """Edge-induced enumeration on ``extend_edge`` (counterpart of the
+        pallas backend's ``_edge_candidates``).  The [cap, E+1] work (slot
+        freshness, toExtend, degree prefix sum) is PyTorch; the
+        candidate-scale work is the kernel."""
+        check_supported(app)
+        check_cand_cap(cand_cap)
+        if not self._edge_fusible(app):
+            raise NotImplementedError(
+                f"app {app.name!r} has a batch to_add hook and no "
+                "to_add_vertex_mask; the cuda backend's edge kernel runs "
+                "only the per-vertex mask")
+        E = vid.shape[1]
+        if ctx.n_edges == 0:
+            # No candidate exists: every lane is dead, which the kernel's
+            # inputs (an empty CSR) cannot express.  This is the dead
+            # output itself, not the plain version run in its place.
+            dev = vid.device
+            zero = torch.zeros(cand_cap, dtype=torch.int32, device=dev)
+            dead = torch.full((cand_cap,), -1, dtype=torch.int32, device=dev)
+            return (zero, zero.clone(), dead, dead.clone(),
+                    torch.zeros(cand_cap, dtype=torch.bool, device=dev),
+                    torch.zeros((), dtype=torch.int64, device=dev))
+        slots, fresh = edge_vertex_slots(v0, vid, his)
+        counts = edge_ext_degrees(ctx, app, slots, fresh, n_valid).reshape(-1)
+        offsets = torch.cumsum(counts, 0, dtype=torch.int32)  # inclusive
+        slots_c = slots.clamp(0, ctx.n_vertices - 1).reshape(-1)
+        vlo = ctx.row_ptr[slots_c.long()]
+        vmask = None
+        if app.to_add_vertex_mask is not None:
+            vmask = app.to_add_vertex_mask(ctx).to(torch.int32)
+        row, s, u, new_eid, add = ops.extend_edge(
+            ctx.col_idx, ctx.edge_uid, offsets, offsets - counts,
+            slots_c.contiguous(), vlo, eid.reshape(-1).contiguous(),
+            ctx.usrc, ctx.udst, vmask, n_slots=E + 1, cand_cap=cand_cap,
+            n_uedges=ctx.n_uedges, n_vertices=ctx.n_vertices)
+        return row, s, u, new_eid, add.bool(), counts.sum(dtype=torch.int64)

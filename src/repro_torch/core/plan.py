@@ -1,8 +1,9 @@
 """Plan-once / execute-many, matching half (counterpart of
 ``repro.core.plan``).
 
-* :class:`MiningPlan` — the per-level ``(cand_cap, out_cap)`` schedule and
-  the identity it was planned for, read and written as JSON in the JAX
+* :class:`MiningPlan` — the per-level ``(cand_cap, out_cap)`` schedule (and
+  for FSM the per-level filter capacities) and the identity it was planned
+  for, read and written as JSON in the JAX
   package's schema, so a plan recorded by either package replays in the
   other (see :mod:`repro_torch.interop`).
 * :class:`HostCapPolicy` — the paper's inspection-execution: per level,
@@ -24,6 +25,7 @@ import hashlib
 import json
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -150,6 +152,7 @@ class HostCapPolicy:
 
     def __init__(self):
         self.caps: list[tuple[int, int]] = []
+        self.filter_caps: list[int] = []
 
     def extend_caps(self, pipe):
         bound = int(pipe.bound())
@@ -173,6 +176,11 @@ class HostCapPolicy:
                 f"candidates for planned caps ({cand_cap}, {out_cap}): "
                 "inspection and extension disagree")
 
+    def filter_cap(self, n_keep) -> int:
+        cap = bucket_cap(int(n_keep))
+        self.filter_caps.append(cap)
+        return cap
+
     def overflow(self):
         return False
 
@@ -190,6 +198,7 @@ class PlanCapPolicy:
     def __init__(self, plan: MiningPlan, device: torch.device):
         self.plan = plan
         self._li = 0
+        self._fi = 0
         self._ovf = torch.zeros((), dtype=torch.bool, device=device)
 
     def extend_caps(self, pipe):
@@ -200,6 +209,12 @@ class PlanCapPolicy:
     def note_extend(self, n_cand, n_surv, cand_cap: int,
                     out_cap: int) -> None:
         self._ovf = self._ovf | (n_cand > cand_cap) | (n_surv > out_cap)
+
+    def filter_cap(self, n_keep) -> int:
+        cap = self.plan.filter_caps[self._fi]
+        self._fi += 1
+        self._ovf = self._ovf | (n_keep > cap)
+        return cap
 
     def overflow(self):
         return self._ovf
@@ -255,30 +270,50 @@ class MiningExecutor:
         self.n_replans += 1
         self._plan = self._plan.grown()
 
-    def _run_once(self, src, dst, n_valid):
+    def _run_once(self, *args):
+        """One replay with no host read: the pipeline's result tensors, the
+        overflow flag last, all on the device."""
         from repro_torch.core import engine as E
         m = self.miner
-        pipe = E._VertexPipeline(m.ops, src, dst, n_valid)
+        pipe_cls = (E._VertexPipeline if self.kind == "vertex"
+                    else E._EdgePipeline)
+        pipe = pipe_cls(m.ops, *args)
         policy = PlanCapPolicy(self._plan, m.device)
         E.run_level_loop(pipe, policy)
-        return pipe.n, policy.overflow()
+        return pipe.bounded_result(policy)
 
-    def execute(self, src, dst, n_valid: int) -> int:
-        """Replay the plan on a vertex-induced worklist; returns the count.
-
-        Each attempt reads the device once, after the last level: the
-        count and the overflow flag in one transfer.
-        """
-        n = torch.tensor(n_valid, dtype=torch.int32, device=self.miner.device)
+    def _run_with_retry(self, *args) -> list[int]:
+        """Replay the plan, growing it on overflow.  Each attempt reads the
+        device once, after the last level: the results and the overflow
+        flag, flattened into one int64 vector, in one transfer."""
         for attempt in range(self.max_retries + 1):
-            cnt, ovf = self._run_once(src, dst, n)
+            outs = self._run_once(*args)
             self.n_executions += 1
-            count, overflowed = torch.stack(
-                [cnt.to(torch.int64), ovf.to(torch.int64)]).tolist()
-            if not overflowed:
-                return count
+            flat = torch.cat([o.to(torch.int64).reshape(-1)
+                              for o in outs]).tolist()
+            if not flat[-1]:
+                return flat[:-1]
             if attempt == self.max_retries:
                 break
             self._grow()
         raise RuntimeError(f"mining plan {self.signature} still overflows "
                            f"after {self.max_retries + 1} attempts")
+
+    def execute(self, src, dst, n_valid: int) -> int:
+        """Replay the plan on a vertex-induced worklist; returns the
+        count."""
+        assert self.kind == "vertex"
+        n = torch.tensor(n_valid, dtype=torch.int32, device=self.miner.device)
+        (count,) = self._run_with_retry(src, dst, n)
+        return count
+
+    def execute_edge(self, src, dst, eid, n_valid: int
+                     ) -> tuple[np.ndarray, np.ndarray]:
+        """Replay the plan on an edge-induced (FSM) worklist; returns
+        ``(codes, supports)``, each int32[max_patterns]."""
+        assert self.kind == "edge"
+        n = torch.tensor(n_valid, dtype=torch.int32, device=self.miner.device)
+        flat = self._run_with_retry(src, dst, eid, n)
+        half = len(flat) // 2
+        return (np.asarray(flat[:half], dtype=np.int32),
+                np.asarray(flat[half:], dtype=np.int32))

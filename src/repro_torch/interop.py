@@ -2,10 +2,11 @@
 
 A mining system has no weights to carry across; what it has is the input
 graph and the capacity plans its executor recorded.  ``graph_from_arrays``
-takes the numpy arrays of a ``repro.graph.csr.CSRGraph``; ``plan_from_json``
-and ``plan_to_json`` move a :class:`MiningPlan` in the JAX package's JSON
-schema, so a plan recorded by the JAX executor replays in the port and
-back.  Nothing here imports the JAX package: the exchange is numpy arrays
+takes the numpy arrays of a ``repro.graph.csr.CSRGraph`` (labels too);
+``plan_from_json`` and ``plan_to_json`` move a :class:`MiningPlan` in the
+JAX package's JSON schema, vertex plans and FSM's edge plans with their
+filter capacities alike, so a plan recorded by the JAX executor replays in
+the port and back.  Nothing here imports the JAX package: the exchange is numpy arrays
 and JSON text.
 """
 from __future__ import annotations

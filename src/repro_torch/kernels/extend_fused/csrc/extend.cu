@@ -8,6 +8,9 @@
 //                       (replace _mp_count_kernel / _mp_scatter_kernel /
 //                        fused_extend_pruned_mp_pallas; both passes share
 //                        enumerate_slot, the port of _tile_enumerate)
+//   extend_edge         edge-induced enumeration with the canonical-edge
+//                       test and the per-vertex eager mask (replaces
+//                       _edge_extend_kernel / fused_extend_edge_pallas)
 //
 // Each entry point has a plain C interface (bound with ctypes), launches on
 // the stream it is given, allocates nothing, never synchronises, and returns
@@ -26,6 +29,12 @@
 // of a slot once its predicate is already false, and does not enumerate dead
 // slots in the pruned pair.  Making them fast (a per-CTA parent window in
 // shared memory, warp-cooperative probes) is later work.
+//
+// extend_edge writes five int32 outputs per candidate slot (20 B), which is
+// its compulsory traffic and its bound: the parent tables are 16 B per slot
+// parent, and the row's E edge uids and their endpoints are read per slot
+// from L1/L2.  One thread per slot, E a template parameter, stores
+// coalesced.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -203,6 +212,85 @@ extend_scatter_kernel(Tables t, int cand_cap, const uint32_t* __restrict__ bits,
   }
 }
 
+// The parent tables of an edge level: per slot-parent ([cap * (E+1)]) the
+// prefix sums of candidate counts, the slot's vertex and its CSR row
+// start; per row the E existing edge uids ([cap * E]); the CSR with the
+// undirected uid of each directed edge; the endpoints of each uid.
+struct EdgeTables {
+  const int* offsets;   // inclusive prefix sum of per-slot counts
+  const int* starts;    // exclusive prefix sum
+  const int* slots;     // the slot's vertex
+  const int* vlo;       // row_ptr[slot vertex]
+  const int* col;       // CSR column array, [m]
+  const int* edge_uid;  // undirected uid per directed edge, [m]
+  const int* eids;      // existing edge uids, [cap * E]
+  const int* usrc;      // uid endpoints, [n_uedges]
+  const int* udst;
+  const int* vmask;     // per-vertex eager toAdd mask, or null
+  int n_parents;
+  int m;
+  int n_uedges;
+  int n_vertices;
+};
+
+constexpr int kEdgeThreads = 256;
+
+// Port of _edge_extend_kernel (extend.py:658): one thread per candidate
+// slot.  A dead lane (slot past the total) keeps the last parent's row and
+// s, with u = new_eid = -1 and add = 0, as the plain version does.
+template <int E>
+__global__ void __launch_bounds__(kEdgeThreads)
+extend_edge_kernel(EdgeTables t, int cand_cap, int* __restrict__ row_out,
+                   int* __restrict__ s_out, int* __restrict__ u_out,
+                   int* __restrict__ eid_out, int* __restrict__ add_out) {
+  constexpr int kSlots = E + 1;
+  int slot = blockIdx.x * kEdgeThreads + threadIdx.x;
+  if (slot >= cand_cap) return;
+  // stage 1: parent search over the [cap * (E+1)] slot-parent table
+  int p = parent_of(t.offsets, t.n_parents, slot);
+  int row = p / kSlots;
+  int s = p - row * kSlots;
+  int u = -1, new_eid = -1, add = 0;
+  if (slot < __ldg(t.offsets + t.n_parents - 1)) {
+    // stage 2: candidate vertex and new edge uid from the CSR
+    long long ptr = (long long)__ldg(t.vlo + p) + (slot - __ldg(t.starts + p));
+    ptr = ptr < 0 ? 0 : (ptr > t.m - 1 ? t.m - 1 : ptr);
+    u = __ldg(t.col + ptr);
+    new_eid = __ldg(t.edge_uid + ptr);
+    int w = __ldg(t.slots + p);                 // source vertex
+    // stage 3: canonical-edge test against the row's E edges; a
+    // neighbour is an edge sharing an endpoint with (w, u)
+    int e_rows = t.n_parents / kSlots * E;
+    long long base = (long long)row * E;
+    int last_uid = t.n_uedges > 0 ? t.n_uedges - 1 : 0;
+    int eid0 = __ldg(t.eids + (base < e_rows - 1 ? base : e_rows - 1));
+    bool ok = new_eid > eid0;
+    bool found = false;
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      long long ej = base + j < e_rows - 1 ? base + j : e_rows - 1;
+      int eidj = __ldg(t.eids + ej);
+      int ec = clampi(eidj, 0, last_uid);
+      int es = __ldg(t.usrc + ec);
+      int ed = __ldg(t.udst + ec);
+      bool shares = w == es || w == ed || u == es || u == ed;
+      ok = ok && !(found && new_eid < eidj);
+      found = found || shares;
+      ok = ok && new_eid != eidj;
+    }
+    bool keep = ok && found;
+    // stage 4: the app's per-vertex eager toAdd mask
+    if (keep && t.vmask != nullptr)
+      keep = __ldg(t.vmask + clampi(u, 0, t.n_vertices - 1)) != 0;
+    add = keep;
+  }
+  row_out[slot] = row;
+  s_out[slot] = s;
+  u_out[slot] = u;
+  eid_out[slot] = new_eid;
+  add_out[slot] = add;
+}
+
 Tables make_tables(const int* offsets, const int* starts, const int* emb,
                    const int* vlo, const int* vhi, const int* col,
                    int n_parents, int m, int k) {
@@ -258,6 +346,36 @@ int extend_scatter(const int* offsets, const int* starts, const int* emb,
                           static_cast<cudaStream_t>(stream)>>>(
       t, cand_cap, bits, use_bitmap, n_words, n_vertices, spec, bases,
       out_cap, row, u);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int extend_edge(const int* offsets, const int* starts, const int* slots,
+                const int* vlo, const int* col, const int* edge_uid,
+                const int* eids, const int* usrc, const int* udst,
+                const int* vmask, int n_parents, int m, int n_slots,
+                int n_uedges, int n_vertices, int cand_cap, int* row, int* s,
+                int* u, int* new_eid, int* add, void* stream) {
+  EdgeTables t{offsets, starts, slots, vlo, col, edge_uid, eids, usrc, udst,
+               vmask, n_parents, m, n_uedges, n_vertices};
+  int blocks = (cand_cap + kEdgeThreads - 1) / kEdgeThreads;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (n_slots - 1) {
+#define EXTEND_EDGE_CASE(E)                                               \
+    case E:                                                               \
+      extend_edge_kernel<E><<<blocks, kEdgeThreads, 0, st>>>(             \
+          t, cand_cap, row, s, u, new_eid, add);                          \
+      break;
+    EXTEND_EDGE_CASE(1)
+    EXTEND_EDGE_CASE(2)
+    EXTEND_EDGE_CASE(3)
+    EXTEND_EDGE_CASE(4)
+    EXTEND_EDGE_CASE(5)
+    EXTEND_EDGE_CASE(6)
+    EXTEND_EDGE_CASE(7)
+#undef EXTEND_EDGE_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

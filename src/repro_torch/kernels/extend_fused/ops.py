@@ -29,7 +29,11 @@ _I = ctypes.c_int
 
 # Kernel launches per wrapper, counted where each wrapper launches.
 LAUNCHES = dict.fromkeys(("extend_candidates", "extend_count",
-                          "extend_scatter"), 0)
+                          "extend_scatter", "extend_edge"), 0)
+
+# Vertex slots per edge-induced embedding the edge kernel is built for
+# (E + 1 for E = 1 .. 7 edges), as the JAX package's MAX_EDGE_SLOTS.
+MAX_EDGE_SLOTS = 8
 
 
 @functools.lru_cache(maxsize=None)
@@ -39,7 +43,9 @@ def _lib() -> ctypes.CDLL:
     lib.extend_count.argtypes = [_P] * 7 + [_I] * 11 + [_P] * 2
     lib.extend_scatter.argtypes = ([_P] * 7 + [_I] * 11
                                    + [_P, _I] + [_P] * 3)
-    for fn in (lib.extend_candidates, lib.extend_count, lib.extend_scatter):
+    lib.extend_edge.argtypes = [_P] * 10 + [_I] * 6 + [_P] * 6
+    for fn in (lib.extend_candidates, lib.extend_count, lib.extend_scatter,
+               lib.extend_edge):
         fn.restype = ctypes.c_int
     lib.extend_error_string.argtypes = [_I]
     lib.extend_error_string.restype = ctypes.c_char_p
@@ -187,8 +193,53 @@ def extend_scatter(col_idx, offsets, starts, emb_flat, vlo, vhi, bits,
     return row, u
 
 
+def extend_edge(col_idx, edge_uid, offsets, starts, slots_flat, vlo,
+                eids_flat, usrc, udst, vmask=None, *, n_slots: int,
+                cand_cap: int, n_uedges: int, n_vertices: int):
+    """Edge-induced enumeration: (row, s, u, new_eid, add), each
+    int32[cand_cap].  See :func:`ref.extend_edge_ref`."""
+    tensors = dict(col_idx=col_idx, edge_uid=edge_uid, offsets=offsets,
+                   starts=starts, slots_flat=slots_flat, vlo=vlo,
+                   eids_flat=eids_flat, usrc=usrc, udst=udst)
+    if vmask is not None:
+        tensors["vmask"] = vmask
+    dev = _check("extend_edge", **tensors)
+    n = offsets.shape[0]
+    if any(t.shape[0] != n for t in (starts, slots_flat, vlo)):
+        raise ValueError("extend_edge: parent tables differ in length")
+    if not 2 <= n_slots <= MAX_EDGE_SLOTS or n % n_slots:
+        raise ValueError(f"extend_edge: {n} parent slots for n_slots="
+                         f"{n_slots}")
+    if eids_flat.shape[0] != n // n_slots * (n_slots - 1):
+        raise ValueError("extend_edge: eids_flat is not [cap * E]")
+    if edge_uid.shape[0] != col_idx.shape[0]:
+        raise ValueError("extend_edge: edge_uid is not [m]")
+    if usrc.shape[0] != n_uedges or udst.shape[0] != n_uedges:
+        raise ValueError("extend_edge: usrc/udst are not [n_uedges]")
+    if vmask is not None and vmask.shape[0] != n_vertices:
+        raise ValueError("extend_edge: vmask is not [n_vertices]")
+    if not 1 <= cand_cap <= 1 << 30:
+        raise ValueError(f"extend_edge: cand_cap={cand_cap}")
+    kw = dict(n_slots=n_slots, cand_cap=cand_cap, n_uedges=n_uedges,
+              n_vertices=n_vertices)
+    if dev.type == "cpu":
+        return ref.extend_edge_ref(col_idx, edge_uid, offsets, starts,
+                                   slots_flat, vlo, eids_flat, usrc, udst,
+                                   vmask, **kw)
+    out = [torch.empty(cand_cap, dtype=torch.int32, device=dev)
+           for _ in range(5)]
+    _launch("extend_edge", _lib().extend_edge,
+            *map(_ptr, (offsets, starts, slots_flat, vlo, col_idx, edge_uid,
+                        eids_flat, usrc, udst)),
+            None if vmask is None else _ptr(vmask),
+            n, col_idx.shape[0], n_slots, n_uedges, n_vertices, cand_cap,
+            *map(_ptr, out))
+    LAUNCHES["extend_edge"] += 1
+    return tuple(out)
+
+
 PLAIN_VERSIONS = (ref.extend_candidates_ref, ref.extend_count_ref,
-                  ref.extend_scatter_ref)
+                  ref.extend_scatter_ref, ref.extend_edge_ref)
 
 
 def reset_counts() -> None:

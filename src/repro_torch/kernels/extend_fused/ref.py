@@ -171,3 +171,61 @@ def extend_scatter_ref(col_idx, offsets, starts, emb_flat, vlo, vhi, bits,
 
 
 extend_scatter_ref.calls = 0
+
+
+def extend_edge_ref(col_idx, edge_uid, offsets, starts, slots_flat, vlo,
+                    eids_flat, usrc, udst, vmask=None, *, n_slots: int,
+                    cand_cap: int, n_uedges: int, n_vertices: int,
+                    slots=None):
+    """Edge-induced enumeration (counterpart of ``fused_extend_edge_ref``).
+
+    The parent tables are per slot-parent, ``[cap * n_slots]`` flattened
+    (``n_slots = E + 1`` vertex slots per embedding): ``offsets`` and
+    ``starts`` the inclusive and exclusive prefix sums of per-slot
+    candidate counts, ``slots_flat`` the slot's vertex, ``vlo`` its CSR row
+    start.  ``eids_flat`` is the ``[cap * E]`` table of existing edge uids,
+    ``usrc``/``udst`` the endpoints of each uid, ``vmask`` (int32
+    [n_vertices], optional) the app's per-vertex eager ``toAdd`` mask.
+
+    For each candidate slot: its parent by a search of ``offsets``, the
+    candidate ``u`` and its edge uid from the CSR, the canonical-edge test
+    against the row's E edges, and the mask.  Returns (row, s, u, new_eid,
+    add), each int32[cand_cap] (or int32[hi - lo]), the same value on every
+    lane as the kernel: a dead lane (slot past the total) carries the last
+    parent's row and s, ``u = new_eid = -1`` and ``add = 0``.
+    """
+    extend_edge_ref.calls += 1
+    lo, hi = _slot_range(slots, cand_cap, tiled=False)
+    n_parents = offsets.shape[0]
+    m = col_idx.shape[0]
+    E = n_slots - 1
+    e_rows = n_parents // n_slots * E
+    slot, p = _parents(offsets, lo, hi)
+    row = torch.div(p, n_slots, rounding_mode="floor")
+    s = p - row * n_slots
+    pl = p.long()
+    ptr = (vlo[pl].long() + (slot - starts[pl]).long()).clamp(0, m - 1)
+    live = slot < offsets[n_parents - 1]      # every slot is < cand_cap
+    u = torch.where(live, col_idx[ptr], -1)
+    new_eid = torch.where(live, edge_uid[ptr], -1)
+    w = slots_flat[pl]
+    base = row.long() * E
+    eid0 = eids_flat[base.clamp(0, e_rows - 1)]
+    ok = new_eid > eid0
+    found = torch.zeros(ok.shape, dtype=torch.bool, device=ok.device)
+    for j in range(E):
+        eidj = eids_flat[(base + j).clamp(0, e_rows - 1)]
+        ec = eidj.clamp(0, max(n_uedges - 1, 0)).long()
+        es, ed = usrc[ec], udst[ec]
+        shares = (w == es) | (w == ed) | (u == es) | (u == ed)
+        ok = ok & ~(found & (new_eid < eidj))
+        found = found | shares
+        ok = ok & (new_eid != eidj)
+    add = ok & found
+    if vmask is not None:
+        add = add & (vmask[u.clamp(0, n_vertices - 1).long()] != 0)
+    add = add & live
+    return row, s, u, new_eid, add.to(torch.int32)
+
+
+extend_edge_ref.calls = 0

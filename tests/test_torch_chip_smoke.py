@@ -4,8 +4,10 @@
 kernel's plain version, piece by piece over slot ranges.  On the CPU the
 wrappers run the plain versions themselves, so these tests show that the
 pieces cover every output element and agree with the whole launch, and
-that a wrong output of any kernel stops the run.
+that a wrong output of any kernel stops the run; the same for the FSM
+phase's edge-kernel checks, and its scipy count against the port.
 """
+import dataclasses
 import importlib.util
 from pathlib import Path
 
@@ -78,3 +80,49 @@ def test_checks_stop_at_a_wrong_kernel(monkeypatch, name, wrong):
     monkeypatch.setattr(ops, name, wrong(getattr(ops, name)))
     with pytest.raises(AssertionError, match=f"{name}.*plain version"):
         smoke.checked_runs(g, APPS, expected, "cpu", chunk=512)
+
+
+def _skewed_labeled_graph():
+    """A labeled RMAT graph whose label 3 is rare: the FSM label mask drops
+    it while other patterns stay frequent."""
+    g = rmat(9, 8, seed=0, labels=4, device="cpu")
+    fold = (g.labels == 3) & (torch.arange(g.n_vertices) % 8 != 0)
+    g = dataclasses.replace(g, labels=torch.where(fold, 0, g.labels))
+    return g, int(torch.bincount(g.labels).min()) + 1
+
+
+def test_fsm_checks_hold_every_edge_launch():
+    smoke = _smoke()
+    g, ms = _skewed_labeled_graph()
+    checks, dropped = smoke.fsm_checked(g, ms, "cpu", keep=True,
+                                        chunk=1 << 16)
+    assert dropped == [3]
+    assert checks.launches == {"extend_edge": 3}
+    assert checks.err == {"extend_edge": 0}
+    cand_cap, total, survivors, masked = checks.edge_levels[0]
+    assert cand_cap >= total > survivors > 0 and masked > 0
+    assert sorted(checks.kept) == ["extend_edge"]
+    assert ops.extend_edge.__name__ == "extend_edge"           # restored
+
+
+def test_fsm_checks_stop_at_a_wrong_edge_kernel(monkeypatch):
+    smoke = _smoke()
+    g, ms = _skewed_labeled_graph()
+    fn = ops.extend_edge
+
+    def wrong(*a, **kw):
+        row, s, u, new_eid, add = fn(*a, **kw)
+        return row, s, u, new_eid, add ^ (torch.arange(add.shape[0]) == 7)
+    monkeypatch.setattr(ops, "extend_edge", wrong)
+    with pytest.raises(AssertionError, match="extend_edge.*plain version"):
+        smoke.fsm_checked(g, ms, "cpu", chunk=1 << 16)
+
+
+def test_scipy_fsm_count_matches_the_port():
+    smoke = _smoke()
+    g, ms = _skewed_labeled_graph()
+    want, edges, freq = smoke.scipy_fsm(g, ms)
+    from repro_torch.core import Miner, make_fsm_app
+    r = Miner(g, make_fsm_app(3, ms), device="cpu").run()
+    assert smoke.frequent_supports(r, ms) == want and len(want) == r.count
+    assert sum(freq) == g.n_vertices and len(edges) == 10

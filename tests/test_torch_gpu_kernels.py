@@ -1,6 +1,6 @@
 """PyTorch port on the card: each CUDA kernel against its plain PyTorch
-version on the same CUDA tensors, and the cuda backend's counts against
-the plain backend's.
+version on the same CUDA tensors, and the cuda backend's counts (and FSM
+codes and supports) against the plain backend's.
 
 Every test here is marked ``gpu`` and skips without a CUDA device.  The
 file imports neither JAX nor the JAX package, so it runs on a machine that
@@ -13,13 +13,16 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import Miner, make_cf_app, make_tc_app
-from repro_torch.core.api import PredicateSpec, resolve_kernel_predicate
+from repro_torch.core import Miner, make_cf_app, make_fsm_app, make_tc_app
+from repro_torch.core.api import (PredicateSpec, make_ctx,
+                                  resolve_kernel_predicate)
 from repro_torch.graph import generators as TG
 from repro_torch.graph.csr import pack_adjacency
 from repro_torch.kernels.extend_fused import ops, ref
 
 pytestmark = pytest.mark.gpu
+
+VERTEX_KERNELS = ("extend_candidates", "extend_count", "extend_scatter")
 
 
 @pytest.fixture
@@ -85,8 +88,8 @@ def test_pruned_pair_matches_plain(cuda, conn_mode, spec_name):
         ops.reset_counts()
         got = ops.extend_pruned(*args, bits, **kw)
         torch.cuda.synchronize()
-        assert list(ops.LAUNCHES.values()) == [0, 1, 1]
-        assert [f.calls for f in ops.PLAIN_VERSIONS] == [0, 0, 0]
+        assert list(ops.LAUNCHES.values()) == [0, 1, 1, 0]
+        assert [f.calls for f in ops.PLAIN_VERSIONS] == [0, 0, 0, 0]
         for a, b in zip(got, _plain_pruned(*args, bits, **kw)):
             assert torch.equal(a, b)
 
@@ -100,5 +103,69 @@ def test_cuda_miner_matches_plain_backend(cuda, make_app):
     ops.reset_counts()
     assert m.run().count == want                      # cold
     assert m.run().count == want                      # warm
-    assert min(ops.LAUNCHES.values()) >= 1
+    assert min(ops.LAUNCHES[name] for name in VERTEX_KERNELS) >= 1
     assert sum(f.calls for f in ops.PLAIN_VERSIONS) == 0
+
+
+def _edge_inputs(device, E, with_vmask, seed=3):
+    """Edge-kernel inputs: random rows of E edge uids and E+1 vertex slots
+    on a labeled ER graph, some slots masked to zero degree."""
+    g = TG.erdos_renyi(200, 0.05, seed=seed, labels=3, device=device)
+    ctx = make_ctx(g, with_edge_uids=True)
+    rng = np.random.default_rng(seed + E)
+    cap, n = 300, g.n_vertices
+    slots = torch.from_numpy(rng.integers(0, n, size=cap * (E + 1)).astype(
+        np.int32)).to(device)
+    keep = torch.from_numpy(rng.random(cap * (E + 1)) < 0.7).to(device)
+    deg = torch.where(keep, g.row_ptr[slots.long() + 1]
+                      - g.row_ptr[slots.long()], 0).to(torch.int32)
+    offsets = torch.cumsum(deg, 0, dtype=torch.int32)
+    eids = torch.from_numpy(rng.integers(-1, ctx.n_uedges, size=cap * E)
+                            .astype(np.int32)).to(device)
+    vmask = (torch.from_numpy((rng.random(n) < 0.6).astype(np.int32))
+             .to(device) if with_vmask else None)
+    args = (ctx.col_idx, ctx.edge_uid, offsets, offsets - deg, slots,
+            g.row_ptr[slots.long()], eids, ctx.usrc, ctx.udst, vmask)
+    kw = dict(n_slots=E + 1, n_uedges=ctx.n_uedges, n_vertices=n)
+    return args, kw, int(offsets[-1])
+
+
+@pytest.mark.parametrize("with_vmask", [False, True], ids=["nomask", "vmask"])
+@pytest.mark.parametrize("E", [1, 2, 3, 7])
+def test_extend_edge_matches_plain(cuda, E, with_vmask):
+    args, kw, total = _edge_inputs(cuda, E, with_vmask)
+    for cand_cap in (total + 300, max(total // 3, 1)):
+        ops.reset_counts()
+        got = ops.extend_edge(*args, cand_cap=cand_cap, **kw)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["extend_edge"] == 1
+        want = ref.extend_edge_ref(*args, cand_cap=cand_cap, **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def test_cuda_fsm_matches_plain_backend(cuda):
+    g = TG.rmat(9, 8, seed=0, labels=4, device=cuda)
+    freq = torch.bincount(g.labels, minlength=4)
+    app = make_fsm_app(3, int(freq.min()) + 1)      # drops one label
+    want = Miner(g, app, backend="torch-ref", device=cuda).run()
+    m = Miner(g, app, backend="cuda", device=cuda)
+    ops.reset_counts()
+    cold = m.run()
+    warm = m.run()
+    for got in (cold, warm):
+        assert np.array_equal(got.codes, want.codes)
+        assert np.array_equal(got.supports, want.supports)
+    assert ops.LAUNCHES["extend_edge"] == 3
+    assert sum(f.calls for f in ops.PLAIN_VERSIONS) == 0
+    # the replay up to its one final read waits for the card nowhere
+    (ex,) = m._executors.values()
+    n = torch.tensor(m.ctx.n_uedges, dtype=torch.int32, device=cuda)
+    args = m.edge_worklist()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        codes, supports, _ = ex._run_once(*args, n)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.array_equal(codes.cpu().numpy(), want.codes)
