@@ -35,6 +35,22 @@ Phases (any failure raises, and the script exits non-zero):
               graph (frequent supports equal to a scipy count, 2 launches
               cold and 1 warm, no plain call, the warm replay free of
               device syncs up to its final read), and a warm-run profile.
+6. tc-fused — the hand-optimised triangle count ``triangle_count_fused(g)``
+              on the intersection kernel ``intersect_count``, on RMAT-12 and
+              RMAT-16: each launch held against its plain version pair by
+              pair (in pieces), the count against scipy, then the counted
+              cold and warm calls (one launch and no plain call each).
+7. cuda-1p  — TC and 4-CF cold and warm through ``Miner(...,
+              backend="cuda-1p")``, the single-pass pruned extend
+              ``extend_pruned_1p``, at the three sizes and modes of phase 3:
+              each launch held against its plain version over its whole
+              slot range (in pieces, the survivor offset carried from piece
+              to piece), rerun at half its ``out_cap`` (overflow), and its
+              buffers against the two-pass pair's on the same level.  Then
+              its timing beside the pair's, the counted main path on RMAT-16
+              (counts equal to scipy, no plain call and no launch of the
+              pair, the warm replay free of device syncs), and a warm-run
+              profile of 4-CF.
 
 The line before the last two is the kernels' JSON record; the line before
 the last is ``nvidia-smi``'s name and power limit; the last line is
@@ -55,11 +71,13 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 TPU_KERNEL = "src/repro/kernels/extend_fused/extend.py"
-KERNEL_SOURCE = "src/repro_torch/kernels/extend_fused/csrc/extend.cu"
 REPLACES = {"extend_candidates": f"{TPU_KERNEL}:65",
             "extend_count": f"{TPU_KERNEL}:505",
             "extend_scatter": f"{TPU_KERNEL}:519"}
 EDGE_REPLACES = {"extend_edge": f"{TPU_KERNEL}:658"}
+LOOKBACK_REPLACES = {"extend_pruned_1p": f"{TPU_KERNEL}:322"}
+INTERSECT_REPLACES = {
+    "intersect_count": "src/repro/kernels/intersect/intersect.py:30"}
 FSM_SUPPORT = 2500              # main FSM configuration's min_support
 FSM_FREQUENT = 24               # its frequent 3-FSM patterns
 
@@ -93,6 +111,23 @@ def cuda_ms(fn, reps: int):
     return start.elapsed_time(end) / reps, out
 
 
+def int_args(kw: dict) -> dict:
+    """A launch's integer keyword arguments (its shape), for messages."""
+    return {k: v for k, v in kw.items() if type(v) is int}
+
+
+def sync_free(fn):
+    """``fn()`` after a device sync, with every device sync inside it an
+    error."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
 def max_abs_err(got, want) -> int:
     """Largest |got - want| over matching int tensors; raises on a shape
     mismatch."""
@@ -109,6 +144,15 @@ def max_abs_err(got, want) -> int:
 # Kernel launches held against their plain versions
 
 
+def wrapper_module(name: str):
+    """The ``ops`` module that defines kernel wrapper ``name``."""
+    if name in INTERSECT_REPLACES:
+        from repro_torch.kernels.intersect import ops
+    else:
+        from repro_torch.kernels.extend_fused import ops
+    return ops
+
+
 class KernelChecks:
     """While active, every launch of a kernel wrapper on the port's path is
     held against the wrapper's plain version on the same inputs.
@@ -116,14 +160,17 @@ class KernelChecks:
     The plain versions run over tile-aligned slot ranges of ``chunk``
     slots (``ref``'s ``slots=``), since at 2^30 candidate slots their
     temporaries would not fit beside the kernel's outputs; the pieces
-    cover every output element.  Each ``extend_scatter`` launch is also
-    replayed with half its ``out_cap`` (an overflow case) and held against
-    the plain version at that capacity.  While ``keep`` is set, the first
-    launch of each kernel keeps its arguments (``kept``) for timing.
-    ``names`` are the kernels checked.  Each ``extend_edge`` launch also
-    records ``(cand_cap, candidates, survivors, masked)`` in
-    ``edge_levels``, ``masked`` counting the live candidates that the
-    app's vertex mask dropped.
+    cover every output element (``intersect_count``: pieces of pairs
+    holding about ``chunk`` lanes).  Each ``extend_scatter`` and
+    ``extend_pruned_1p`` launch is also replayed with half its
+    ``out_cap`` (an overflow case) and held against the plain version at
+    that capacity; each ``extend_pruned_1p`` launch's buffers are also
+    held against the two-pass pair's on the same inputs (``pair_matches``
+    counts them).  While ``keep`` is set, the first launch of each kernel
+    keeps its arguments (``kept``) for timing.  ``names`` are the kernels
+    checked.  Each ``extend_edge`` launch also records ``(cand_cap,
+    candidates, survivors, masked)`` in ``edge_levels``, ``masked``
+    counting the live candidates that the app's vertex mask dropped.
     """
 
     def __init__(self, chunk: int = 1 << 25, names=tuple(REPLACES)):
@@ -135,21 +182,21 @@ class KernelChecks:
         self.launches = {name: 0 for name in self.names}
         self.modes: set[str] = set()
         self.overflow_cases = 0
+        self.pair_matches = 0
         self.edge_levels: list[tuple[int, int, int, int]] = []
         self.kept: dict = {}
         self.keep = False
 
     def __enter__(self):
-        from repro_torch.kernels.extend_fused import ops
-        self._saved = {name: getattr(ops, name) for name in self.names}
+        self._saved = {name: getattr(wrapper_module(name), name)
+                       for name in self.names}
         for name, fn in self._saved.items():
-            setattr(ops, name, self._checked(name, fn))
+            setattr(wrapper_module(name), name, self._checked(name, fn))
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.kernels.extend_fused import ops
         for name, fn in self._saved.items():
-            setattr(ops, name, fn)
+            setattr(wrapper_module(name), name, fn)
 
     def _checked(self, name, fn):
         check = getattr(self, f"_check_{name}")
@@ -163,10 +210,8 @@ class KernelChecks:
             if self.keep and name not in self.kept:
                 self.kept[name] = (a, kw)
             if err:
-                raise AssertionError(
-                    f"{name} (cand_cap={kw['cand_cap']}, k="
-                    f"{kw.get('k', kw.get('n_slots'))}) differs from its "
-                    f"plain version by {err}")
+                raise AssertionError(f"{name} ({int_args(kw)}) differs "
+                                     f"from its plain version by {err}")
             return got
         return run
 
@@ -233,30 +278,82 @@ class KernelChecks:
                                  int(got[4].sum()), masked))
         return err
 
+    def _lookback_err(self, a, kw, got, out_cap: int) -> int:
+        """Piece by piece, the survivor offset carried from piece to piece:
+        the survivors of slots lo..hi-1 land from the offset before the
+        piece to the offset after it (the last piece's window runs to
+        ``out_cap``, so it also covers the fill); then the true total."""
+        from repro_torch.kernels.extend_fused import ref
+        row, u, n_surv = got
+        cand_cap = kw["cand_cap"]
+        base = err = 0
+        for lo, hi in self._ranges(cand_cap):
+            want_row, want_u, n = ref.extend_pruned_1p_ref(
+                *a, **{**kw, "out_cap": out_cap}, slots=(lo, hi), base=base)
+            end = int(n)
+            w0 = min(base, out_cap)
+            w1 = min(end, out_cap) if hi < cand_cap else out_cap
+            err = max(err, max_abs_err([row[w0:w1], u[w0:w1]],
+                                       [want_row[w0:w1], want_u[w0:w1]]))
+            base = end
+        return max(err, abs(int(n_surv) - base))
+
+    def _check_extend_pruned_1p(self, a, kw, got) -> int:
+        from repro_torch.kernels.extend_fused import ops
+        err = self._lookback_err(a, kw, got, kw["out_cap"])
+        small = max(kw["out_cap"] // 2, 1)
+        over = self._saved["extend_pruned_1p"](*a, **{**kw, "out_cap": small})
+        if small < int(over[2]):
+            self.overflow_cases += 1
+        err = max(err, self._lookback_err(a, kw, over, small))
+        if not err:
+            # the two-pass pair on the same inputs: the same buffers
+            pair = ops.extend_pruned(*a, **kw)[:3]
+            if max_abs_err(got, pair):
+                raise AssertionError(
+                    f"extend_pruned_1p (cand_cap={kw['cand_cap']}) differs "
+                    "from the two-pass pair's buffers")
+            self.pair_matches += 1
+        return err
+
+    def _check_intersect_count(self, a, kw, got) -> int:
+        from repro_torch.kernels.intersect import ref
+        n_pairs = a[1].shape[0]
+        step = max(self.chunk // max(kw["max_deg"], 1), 1)
+        err = 0
+        for lo in range(0, n_pairs, step):
+            hi = min(lo + step, n_pairs)
+            want = ref.intersect_count_ref(*a, **kw, pairs=(lo, hi))
+            err = max(err, max_abs_err([got[lo:hi]], [want]))
+        return err
+
     def report(self, label: str) -> None:
         log(f"[check] {label}: launches {self.launches}, modes "
             f"{sorted(self.modes)}, overflow cases {self.overflow_cases}, "
-            f"max_abs_err {self.err}")
+            f"buffers equal to the pair's {self.pair_matches}, max_abs_err "
+            f"{self.err}")
 
 
 def checked_runs(graph, apps, expected: dict, label: str,
                  pack_max_bytes: int = 4 << 20, keep: str | None = None,
-                 chunk: int = 1 << 25) -> KernelChecks:
-    """Cold then warm ``Miner.run`` of each app on the cuda backend, on the
-    graph's device, every kernel launch held against its plain version, and
-    each count against ``expected``.  ``keep`` names the app whose first
-    launch of each kernel keeps its arguments for timing."""
+                 chunk: int = 1 << 25, backend: str = "cuda",
+                 names=tuple(REPLACES)) -> KernelChecks:
+    """Cold then warm ``Miner.run`` of each app on ``backend``, on the
+    graph's device, every launch of the kernels ``names`` held against its
+    plain version, and each count against ``expected``.  ``keep`` names the
+    app whose first launch of each kernel keeps its arguments for
+    timing."""
     import torch
     from repro_torch.core import Miner
 
     on_card = graph.device.type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    checks = KernelChecks(chunk)
+    checks = KernelChecks(chunk, names)
     with checks:
         for name, app in apps:
             checks.keep = name == keep
-            miner = Miner(graph, app, backend="cuda",
+            miner = Miner(graph, app, backend=backend,
                           pack_max_bytes=pack_max_bytes, device=graph.device)
             for run in ("cold", "warm"):
                 count = miner.run().count
@@ -280,16 +377,20 @@ def bytes_moved(name: str, a, kw) -> int:
     if name == "extend_edge":            # every tensor argument is an input
         inputs = sum(t.numel() * 4 for t in a if t is not None)
         return inputs + 5 * kw["cand_cap"] * 4
+    if name == "intersect_count":        # col, four bounds in, counts out
+        return (a[0].shape[0] + 5 * a[1].shape[0]) * 4
     offsets, col, cand_cap = a[1], a[0], kw["cand_cap"]
     parents = 5 * offsets.shape[0] * 4
     if name == "extend_candidates":
         return parents + col.shape[0] * 4 + 4 * cand_cap * 4
     bits = a[6].shape[0] * 4 if kw["conn_mode"] == "bitmap" else 0
+    reads = parents + col.shape[0] * 4 + bits
+    if name == "extend_pruned_1p":       # row/u and the total out
+        return reads + 2 * kw["out_cap"] * 4 + 4
     tiles = -(-cand_cap // ref.BLOCK_C) * 4
-    base = parents + col.shape[0] * 4 + bits + tiles
     if name == "extend_count":
-        return base
-    return base + tiles + 2 * kw["out_cap"] * 4    # bases in, row/u out
+        return reads + tiles
+    return reads + 2 * tiles + 2 * kw["out_cap"] * 4  # bases in, row/u out
 
 
 def time_kernels(kept: dict) -> dict:
@@ -297,16 +398,20 @@ def time_kernels(kept: dict) -> dict:
     arguments one main-path launch gave it, the two outputs compared, and
     the memory bound."""
     import torch
-    from repro_torch.kernels.extend_fused import ops, ref
+    from repro_torch.kernels.extend_fused import ref
+    from repro_torch.kernels.intersect import ref as intersect_ref
 
     plain = {"extend_candidates": ref.extend_candidates_ref,
              "extend_count": ref.extend_count_ref,
              "extend_scatter": ref.extend_scatter_ref,
-             "extend_edge": ref.extend_edge_ref}
+             "extend_edge": ref.extend_edge_ref,
+             "extend_pruned_1p": ref.extend_pruned_1p_ref,
+             "intersect_count": intersect_ref.intersect_count_ref}
     rows = {}
     for name in kept:
         a, kw = kept[name]
-        ms, got = cuda_ms(lambda: getattr(ops, name)(*a, **kw), reps=10)
+        wrapper = getattr(wrapper_module(name), name)
+        ms, got = cuda_ms(lambda: wrapper(*a, **kw), reps=10)
         plain_ms, want = cuda_ms(lambda: plain[name](*a, **kw), reps=2)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -316,10 +421,9 @@ def time_kernels(kept: dict) -> dict:
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                       "max_abs_err": err}
-        log(f"[timing] {name} (cand_cap={kw['cand_cap']}, k="
-            f"{kw.get('k', kw.get('n_slots'))}): "
-            f"{ms:.3f} ms (plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-            f"from {nbytes} B), max_abs_err {err}")
+        log(f"[timing] {name} ({int_args(kw)}): {ms:.3f} ms (plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms from {nbytes} B), "
+            f"max_abs_err {err}")
         if err:
             raise AssertionError(f"{name} differs from its plain version")
         torch.cuda.empty_cache()
@@ -354,18 +458,28 @@ def scipy_counts(graph) -> tuple[int, int]:
     return triangles, cliques4
 
 
-def main_path(graph, expected: dict) -> dict:
-    """Cold then warm Miner.run for TC and 4-CF on the cuda backend."""
+# The kernels each vertex backend's main path launches; no other kernel may
+PATH_KERNELS = {"cuda": tuple(REPLACES),
+                "cuda-1p": ("extend_candidates", "extend_pruned_1p")}
+
+
+def main_path(graph, expected: dict, backend: str = "cuda") -> dict:
+    """Cold then warm Miner.run for TC and 4-CF on ``backend``, the launches
+    counted: every kernel of the backend's path must launch, no other
+    kernel and no plain version may run; then the warm replay once more up
+    to its final read, with every device sync an error."""
     import torch
     from repro_torch.core import Miner, make_cf_app, make_tc_app
     from repro_torch.kernels.extend_fused import ops
 
-    launches = dict.fromkeys(REPLACES, 0)
+    path = PATH_KERNELS[backend]
+    launches = dict.fromkeys(path, 0)
     for name, app in (("tc", make_tc_app()), ("4-cf", make_cf_app(4))):
+        label = name if backend == "cuda" else f"{backend} {name}"
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_counts()
-        miner = Miner(graph, app, backend="cuda")
+        miner = Miner(graph, app, backend=backend)
         times, counts = {}, {}
         for run in ("cold", "warm"):
             torch.cuda.synchronize()
@@ -377,23 +491,45 @@ def main_path(graph, expected: dict) -> dict:
         plain = sum(fn.calls for fn in ops.PLAIN_VERSIONS)
         peak = torch.cuda.max_memory_allocated()
         ex = next(iter(miner._executors.values()))
-        log(f"[main] {name}: cold {counts['cold']} in {times['cold']:.3f} s, "
+        log(f"[main] {label}: cold {counts['cold']} in {times['cold']:.3f} s, "
             f"warm {counts['warm']} in {times['warm']:.3f} s, plan "
             f"{list(ex.plan.caps)}, replans {ex.n_replans}, peak "
             f"{peak} B, launches {got}, plain calls {plain}")
         for run in ("cold", "warm"):
             if counts[run] != expected[name]:
-                raise AssertionError(f"{name} {run}: {counts[run]} != scipy "
+                raise AssertionError(f"{label} {run}: {counts[run]} != scipy "
                                      f"{expected[name]}")
         if plain:
-            raise AssertionError(f"{name}: plain versions ran {plain} times "
+            raise AssertionError(f"{label}: plain versions ran {plain} times "
                                  "on the main path")
-        if min(got[k] for k in REPLACES) < 1:
-            raise AssertionError(f"{name}: a kernel never launched: {got}")
-        for k in REPLACES:
+        if min(got[k] for k in path) < 1 or any(
+                n for k, n in got.items() if k not in path):
+            raise AssertionError(f"{label}: launches {got}, path {path}")
+        for k in path:
             launches[k] += got[k]
+        replay_without_sync(miner, expected[name], label)
         del miner
     return launches
+
+
+def replay_without_sync(miner, want: int, label: str) -> None:
+    """The warm vertex replay up to its final read, with every device sync
+    an error; its count must be ``want``."""
+    import torch
+    import torch.nn.functional as F
+
+    (ex,) = miner._executors.values()
+    src, dst = miner.init_edges()
+    m = int(src.shape[0])
+    pad = (0, ex.cap0 - m)
+    src, dst = F.pad(src, pad), F.pad(dst, pad)
+    n = torch.tensor(m, dtype=torch.int32, device="cuda")
+    count, ovf = sync_free(lambda: ex._run_once(src, dst, n))
+    if (int(count), bool(ovf)) != (want, False):
+        raise AssertionError(f"{label}: the sync-checked replay counted "
+                             f"{int(count)} (overflow {bool(ovf)})")
+    log(f"[main] {label}: the warm replay made no device sync before its "
+        "final read")
 
 
 # ---------------------------------------------------------------------------
@@ -529,12 +665,7 @@ def fsm_main_path(graph, min_support: int, want: list[int]) -> int:
     # the warm replay up to its final read, with every device sync an error
     n = torch.tensor(miner.ctx.n_uedges, dtype=torch.int32, device="cuda")
     args = miner.edge_worklist()
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        _, supports, _ = ex._run_once(*args, n)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+    _, supports, _ = sync_free(lambda: ex._run_once(*args, n))
     if not np.array_equal(supports.cpu().numpy(), results["warm"].supports):
         raise AssertionError("3-fsm: the sync-checked replay differs")
     log("[main] 3-fsm: the warm replay made no device sync before its "
@@ -543,7 +674,7 @@ def fsm_main_path(graph, min_support: int, want: list[int]) -> int:
     return count
 
 
-def profile_warm(graph, app, label: str) -> None:
+def profile_warm(graph, app, label: str, backend: str = "cuda") -> None:
     """Device time by kernel, and the device's idle share, over one warm
     run (``torch.profiler``; falls back to saying so when it records no
     device time)."""
@@ -551,7 +682,7 @@ def profile_warm(graph, app, label: str) -> None:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import Miner
 
-    miner = Miner(graph, app, backend="cuda")
+    miner = Miner(graph, app, backend=backend)
     miner.run()
     miner.run()
     torch.cuda.synchronize()
@@ -574,6 +705,54 @@ def profile_warm(graph, app, label: str) -> None:
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:10]:
         log(f"[profile]   {us:10.0f} us {100 * us / busy_us:5.1f}% "
             f"x{count:<3d} {key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# The hand-optimised triangle count
+
+
+def tc_fused_checked(graph, want: int, label: str, keep: bool = False,
+                     chunk: int = 1 << 25) -> KernelChecks:
+    """``triangle_count_fused(graph)`` with its ``intersect_count`` launch
+    held against the plain version, pair by pair in pieces, and the count
+    against ``want``."""
+    from repro_torch.core import triangle_count_fused
+
+    checks = KernelChecks(chunk, names=tuple(INTERSECT_REPLACES))
+    checks.keep = keep
+    with checks:
+        count = triangle_count_fused(graph)
+    checks.report(label)
+    if count != want or checks.launches["intersect_count"] != 1:
+        raise AssertionError(f"{label}: fused TC {count} != scipy {want}, "
+                             f"launches {checks.launches}")
+    return checks
+
+
+def tc_fused_main(graph, want: int) -> int:
+    """Cold then warm ``triangle_count_fused`` on the card, launches
+    counted: one launch and no plain call each.  Returns the launches."""
+    import torch
+    from repro_torch.core import triangle_count_fused
+    from repro_torch.kernels.intersect import ops, ref
+
+    ops.reset_counts()
+    times, counts = {}, {}
+    for run in ("cold", "warm"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        counts[run] = triangle_count_fused(graph)
+        torch.cuda.synchronize()
+        times[run] = time.perf_counter() - t0
+    launches = ops.LAUNCHES["intersect_count"]
+    plain = ref.intersect_count_ref.calls
+    log(f"[main] tc-fused: cold {counts['cold']} in {times['cold']:.3f} s, "
+        f"warm {counts['warm']} in {times['warm']:.3f} s, launches "
+        f"{launches}, plain calls {plain}")
+    if set(counts.values()) != {want} or (launches, plain) != (2, 0):
+        raise AssertionError(f"tc-fused: counts {counts} (scipy {want}), "
+                             f"launches {launches}, plain calls {plain}")
+    return launches
 
 
 def main() -> int:
@@ -601,7 +780,7 @@ def main() -> int:
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    for src, report in build.build_all([ops.SOURCE]).items():
+    for src, report in build.build_all(build.sources()).items():
         log(f"[build] {src.name}:\n{report.strip()}")
     log(f"[build] {time.perf_counter() - t0:.1f} s")
 
@@ -639,6 +818,46 @@ def main() -> int:
     launches = main_path(g16, expected)
     profile_warm(g16, make_tc_app(), "rmat16 tc")
     profile_warm(g16, make_cf_app(4), "rmat16 4-cf")
+
+    # the hand-optimised TC on the intersection kernel: every launch
+    # checked at scale 12 and at the main size, keeping the latter for
+    # timing; then the counted cold and warm calls
+    t_phase = time.perf_counter()
+    tc_fused_checked(g12, expected12["tc"], "rmat12 tc-fused")
+    checks_tc = tc_fused_checked(g16, tri, "rmat16 tc-fused", keep=True)
+    timing.update(time_kernels(checks_tc.kept))
+    checks_tc.kept.clear()
+    launches["intersect_count"] = tc_fused_main(g16, tri)
+    log(f"[tc-fused] phase {time.perf_counter() - t_phase:.1f} s")
+
+    # the single-pass pruned extend: every launch checked at the sizes and
+    # modes of the pair's checks, keeping RMAT-16 TC's for timing beside
+    # the pair on the same arguments; then the counted main path
+    t_phase = time.perf_counter()
+    lookback = dict(backend="cuda-1p", names=tuple(LOOKBACK_REPLACES))
+    for mode, pmb in (("bitmap", 4 << 20), ("search", 0)):
+        checks = checked_runs(g12, tc_cf, expected12,
+                              f"rmat12 {mode} cuda-1p", pack_max_bytes=pmb,
+                              **lookback)
+        if mode not in checks.modes or checks.pair_matches < 1:
+            raise AssertionError(f"rmat12 cuda-1p: modes {checks.modes}, "
+                                 f"{checks.pair_matches} pair matches")
+    checks_1p = checked_runs(g16, tc_cf, expected, "rmat16 cuda-1p",
+                             keep="tc", **lookback)
+    if checks_1p.overflow_cases < 1:
+        raise AssertionError("cuda-1p: no overflow case was checked")
+    timing.update(time_kernels(checks_1p.kept))
+    a, kw = checks_1p.kept.pop("extend_pruned_1p")
+    pair_ms, _ = cuda_ms(lambda: ops.extend_pruned(*a, **kw), reps=10)
+    log(f"[timing] extend_pruned, the pair with its cumsum, on the same "
+        f"arguments: {pair_ms:.3f} ms")
+    del a, kw
+    torch.cuda.empty_cache()
+    for k, n in main_path(g16, expected, backend="cuda-1p").items():
+        launches[k] = launches.get(k, 0) + n
+    profile_warm(g16, make_cf_app(4), "rmat16 4-cf cuda-1p",
+                 backend="cuda-1p")
+    log(f"[cuda-1p] phase {time.perf_counter() - t_phase:.1f} s")
     del g16
     torch.cuda.empty_cache()
 
@@ -690,11 +909,13 @@ def main() -> int:
     log(f"[fsm] phase {time.perf_counter() - t_fsm:.1f} s")
 
     kernels = []
-    errs = {**checks16.err, **checks15.err}
-    for name, replaces in {**REPLACES, **EDGE_REPLACES}.items():
+    errs = {**checks16.err, **checks15.err, **checks_tc.err, **checks_1p.err}
+    for name, replaces in {**REPLACES, **EDGE_REPLACES, **LOOKBACK_REPLACES,
+                           **INTERSECT_REPLACES}.items():
         t = timing[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "name": name, "route": "cuda",
+            "source": str(wrapper_module(name).SOURCE.relative_to(ROOT)),
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(errs[name], t["max_abs_err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],

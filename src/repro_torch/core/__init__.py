@@ -5,4 +5,5 @@ from repro_torch.core.plan import (HostCapPolicy, MiningExecutor, MiningPlan,
                                    PlanCapPolicy, plan_signature)
 from repro_torch.core.phases import (PhaseBackend, available_backends,
                                      get_backend, register_backend)
-from repro_torch.core.apps import make_cf_app, make_fsm_app, make_tc_app
+from repro_torch.core.apps import (make_cf_app, make_fsm_app, make_tc_app,
+                                   triangle_count_fused)

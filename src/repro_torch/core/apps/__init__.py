@@ -1,3 +1,3 @@
 from repro_torch.core.apps.cf import make_cf_app
 from repro_torch.core.apps.fsm import make_fsm_app
-from repro_torch.core.apps.tc import make_tc_app
+from repro_torch.core.apps.tc import make_tc_app, triangle_count_fused

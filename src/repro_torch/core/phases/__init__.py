@@ -7,13 +7,15 @@ Built-ins:
     (two-pass scan compaction on a concurrent grid), plain PyTorch for
     the rest.  On CPU tensors its kernel wrappers run their plain
     versions.
+  * ``"cuda-1p"``   — ``cuda`` with the single-pass pruned extend
+    (decoupled look-back compaction on a concurrent grid).
 """
 from __future__ import annotations
 
 from typing import Callable, Union
 
 from repro_torch.core.phases.base import PhaseBackend
-from repro_torch.core.phases.cuda import CudaBackend
+from repro_torch.core.phases.cuda import CudaBackend, CudaLookbackBackend
 from repro_torch.core.phases.reference import ReferenceBackend
 
 _REGISTRY: dict[str, Callable[[], PhaseBackend]] = {}
@@ -56,3 +58,4 @@ def get_backend(spec: BackendSpec = None) -> PhaseBackend:
 
 register_backend("torch-ref", ReferenceBackend)
 register_backend("cuda", CudaBackend)
+register_backend("cuda-1p", CudaLookbackBackend)

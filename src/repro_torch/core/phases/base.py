@@ -37,7 +37,9 @@ class PhaseBackend:
     # (repro_torch.core.plan.plan_app_key), as in the JAX package:
     #   compaction          "xla-scan" (prefix-sum compaction outside any
     #                       kernel) | "two-pass-scan" (per-tile counts ->
-    #                       exclusive scan -> masked scatter)
+    #                       exclusive scan -> masked scatter) |
+    #                       "decoupled-lookback" (one pass; each tile's
+    #                       base from its predecessors' published counts)
     #   compaction_passes   kernel passes over the candidate range
     #   grid_contract       "any" | "sequential" | "concurrent"
     compaction: str = "xla-scan"

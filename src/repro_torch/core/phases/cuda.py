@@ -1,5 +1,6 @@
-"""CUDA phase backend: EXTEND on hand-written Hopper kernels (counterpart
-of ``repro.core.phases.pallas`` under the ``pallas_mp`` contract).
+"""CUDA phase backends: EXTEND on hand-written Hopper kernels (counterparts
+of ``repro.core.phases.pallas``: ``cuda`` under the ``pallas-mp`` contract,
+``cuda-1p`` a single pass like ``pallas``).
 
 * ``_vertex_candidates`` (the cold inspection pass) runs the unpruned
   enumeration kernel ``extend_candidates`` and evaluates the app's
@@ -8,7 +9,10 @@ of ``repro.core.phases.pallas`` under the ``pallas_mp`` contract).
   ``extend_count`` / ``extend_scatter``: no state crosses thread blocks
   except the tile counts' exclusive scan between the passes, so the
   compaction contract is ``two-pass-scan`` on a ``concurrent`` grid.
-
+  ``cuda-1p`` (:class:`CudaLookbackBackend`) swaps exactly this call for
+  the single-pass ``extend_pruned_1p``, whose tiles find their bases by a
+  decoupled look-back across thread blocks (``decoupled-lookback``, one
+  pass, still a ``concurrent`` grid); everything else is shared.
 * ``_edge_candidates`` (every edge level, cold inspection and extension)
   runs ``extend_edge``: the ragged expansion, CSR and edge-uid gathers, the
   canonical-edge test and the app's per-vertex eager mask in one kernel.
@@ -51,6 +55,12 @@ class CudaBackend(ReferenceBackend):
     compaction = "two-pass-scan"
     compaction_passes = 2
     grid_contract = "concurrent"
+
+    # The ``ops`` wrapper behind extend_pruned, by name: looked up at each
+    # call, so a wrapper replaced in ``ops`` (as the smoke script's checks
+    # do) is the one that runs.  A subclass swaps only this, and every line
+    # of input prep stays shared.
+    _pruned_kernel = "extend_pruned"
 
     @staticmethod
     def _edge_fusible(app: MiningApp) -> bool:
@@ -153,11 +163,11 @@ class CudaBackend(ReferenceBackend):
         else:
             raise NotImplementedError("mixed connectivity (partial or core "
                                       "pack) is not ported yet")
-        row, u, n_surv, _ = ops.extend_pruned(
+        row, u, n_surv = getattr(ops, self._pruned_kernel)(
             _col_idx(ctx), offsets, starts, emb.reshape(-1).contiguous(),
             vlo, vhi, bits, k=k, cand_cap=cand_cap, out_cap=out_cap,
             n_steps=ctx.n_steps, n_vertices=ctx.n_vertices, n_words=n_words,
-            spec=spec, conn_mode=conn_mode)
+            spec=spec, conn_mode=conn_mode)[:3]
         live = torch.arange(out_cap, dtype=torch.int32,
                             device=emb.device) < n_surv
         vid = torch.where(live, u, -1)
@@ -204,3 +214,17 @@ class CudaBackend(ReferenceBackend):
             ctx.usrc, ctx.udst, vmask, n_slots=E + 1, cand_cap=cand_cap,
             n_uedges=ctx.n_uedges, n_vertices=ctx.n_vertices)
         return row, s, u, new_eid, add.bool(), counts.sum(dtype=torch.int64)
+
+
+class CudaLookbackBackend(CudaBackend):
+    """The ``cuda`` backend with the single-pass pruned extend
+    (``extend_pruned_1p``, the port of the ``pallas`` backend's
+    ``fused_extend_pruned``): one enumeration per level instead of two, the
+    same buffers bit for bit.  Inspection, the edge path and what the
+    ``cuda`` backend refuses are inherited unchanged."""
+
+    name = "cuda-1p"
+    compaction = "decoupled-lookback"
+    compaction_passes = 1
+    grid_contract = "concurrent"
+    _pruned_kernel = "extend_pruned_1p"

@@ -16,7 +16,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-REPO_ROOT = Path(__file__).resolve().parents[3]
+KERNELS_DIR = Path(__file__).resolve().parent
+REPO_ROOT = KERNELS_DIR.parents[2]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -28,6 +29,11 @@ def nvcc() -> str:
         raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
                            "machine with the CUDA toolkit")
     return path
+
+
+def sources() -> list[Path]:
+    """Every CUDA source of the port: ``kernels/<family>/csrc/*.cu``."""
+    return sorted(KERNELS_DIR.glob("*/csrc/*.cu"))
 
 
 def library_path(source: Path) -> Path:

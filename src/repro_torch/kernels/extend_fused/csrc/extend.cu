@@ -11,6 +11,8 @@
 //   extend_edge         edge-induced enumeration with the canonical-edge
 //                       test and the per-vertex eager mask (replaces
 //                       _edge_extend_kernel / fused_extend_edge_pallas)
+//   extend_pruned_1p    the single-pass pruned extend (replaces
+//                       _pruned_extend_kernel / fused_extend_pruned_pallas)
 //
 // Each entry point has a plain C interface (bound with ctypes), launches on
 // the stream it is given, allocates nothing, never synchronises, and returns
@@ -30,6 +32,20 @@
 // slots in the pruned pair.  Making them fast (a per-CTA parent window in
 // shared memory, warp-cooperative probes) is later work.
 //
+// extend_pruned_1p enumerates once where the pair enumerates twice.  The TPU
+// kernel carries the running survivor offset from tile to tile in SMEM,
+// which only a sequential grid allows; here each CTA takes its tile from an
+// atomic ticket (so every tile it waits on is already running), publishes
+// its survivor count, and finds its base by a decoupled look-back over the
+// predecessors' 64-bit status words (flag and value in one word, so one
+// store publishes both).  The in-tile rank is the pair's
+// own lane-order scan (tile_rank), so the output order, and the buffers,
+// are the pair's bit for bit.  Its compulsory traffic is the pair's reads
+// plus 8 B per survivor and 8 B per tile of status.  A tile waits until
+// every earlier tile has counted, and the work per tile is uneven (search
+// depths, dead slots), so a CTA takes four 512-slot sub-tiles: a quarter
+// of the look-backs, and less spread in the time per tile.
+//
 // extend_edge writes five int32 outputs per candidate slot (20 B), which is
 // its compulsory traffic and its bound: the parent tables are 16 B per slot
 // parent, and the row's E edge uids and their endpoints are read per slot
@@ -43,6 +59,7 @@ namespace {
 
 constexpr int kTile = 512;            // slots per CTA in the pruned pair
 constexpr int kWarps = kTile / 32;
+constexpr int kItems1p = 4;           // 512-slot sub-tiles per CTA, 1p
 constexpr int kCandThreads = 256;     // threads per CTA in extend_candidates
 
 // The clique predicate, as PredicateSpec in repro_torch/core/api.py.
@@ -175,21 +192,16 @@ extend_count_kernel(Tables t, int cand_cap, const uint32_t* __restrict__ bits,
   if (threadIdx.x == 0) counts[blockIdx.x] = cnt;
 }
 
-__global__ void __launch_bounds__(kTile)
-extend_scatter_kernel(Tables t, int cand_cap, const uint32_t* __restrict__ bits,
-                      int use_bitmap, int n_words, int n_vertices, Spec spec,
-                      const int* __restrict__ bases, int out_cap,
-                      int* __restrict__ row_out, int* __restrict__ u_out) {
-  __shared__ int warp_base[kWarps];
-  int slot = blockIdx.x * kTile + threadIdx.x;
-  int total = t.offsets[t.n_parents - 1];
-  Cand c{0, -1, false};
-  if (slot < cand_cap && slot < total)
-    c = enumerate_slot(t, slot, bits, use_bitmap, n_words, n_vertices, spec);
-  // In-tile exclusive scan in lane order (stable compaction, extend.py:296).
+// The lane-order exclusive rank of `keep` within the CTA's tile (stable
+// compaction; port of _tile_compact, extend.py:296): a warp ballot, then a
+// scan of the warp counts in warp 0.  `warp_base` is the caller's shared
+// int[kWarps + 1]; `*count` gets the tile's survivors.  Every compacting
+// kernel calls this one function, so their orders cannot drift apart.
+__device__ __forceinline__ int tile_rank(bool keep, int* warp_base,
+                                         int* count) {
   int lane = threadIdx.x & 31;
   int warp = threadIdx.x >> 5;
-  unsigned ballot = __ballot_sync(0xffffffffu, c.keep);
+  unsigned ballot = __ballot_sync(0xffffffffu, keep);
   if (lane == 0) warp_base[warp] = __popc(ballot);
   __syncthreads();
   if (warp == 0) {
@@ -200,14 +212,144 @@ extend_scatter_kernel(Tables t, int cand_cap, const uint32_t* __restrict__ bits,
       if (lane >= d) x += y;
     }
     if (lane < kWarps) warp_base[lane] = x - v;
+    if (lane == kWarps - 1) warp_base[kWarps] = x;
   }
   __syncthreads();
+  *count = warp_base[kWarps];
+  return warp_base[warp] + __popc(ballot & ((1u << lane) - 1u));
+}
+
+__global__ void __launch_bounds__(kTile)
+extend_scatter_kernel(Tables t, int cand_cap, const uint32_t* __restrict__ bits,
+                      int use_bitmap, int n_words, int n_vertices, Spec spec,
+                      const int* __restrict__ bases, int out_cap,
+                      int* __restrict__ row_out, int* __restrict__ u_out) {
+  __shared__ int warp_base[kWarps + 1];
+  int slot = blockIdx.x * kTile + threadIdx.x;
+  int total = t.offsets[t.n_parents - 1];
+  Cand c{0, -1, false};
+  if (slot < cand_cap && slot < total)
+    c = enumerate_slot(t, slot, bits, use_bitmap, n_words, n_vertices, spec);
+  int count;
+  int r = tile_rank(c.keep, warp_base, &count);
   if (c.keep) {
-    int r = warp_base[warp] + __popc(ballot & ((1u << lane) - 1u));
     long long dest = (long long)bases[blockIdx.x] + r;
     if (dest < out_cap) {
       row_out[dest] = c.row;
       u_out[dest] = c.u;
+    }
+  }
+}
+
+// A tile's status word: the flag in the high half, the survivor count in
+// the low half, so one 64-bit store publishes both.
+constexpr unsigned long long kAggregate = 1ull << 32;  // this tile's count
+constexpr unsigned long long kInclusive = 2ull << 32;  // count of tiles 0..i
+
+// The status words are read and written as relaxed 64-bit atomics at GPU
+// scope: coherent across SMs, never torn, and nothing else is published
+// through them, so no acquire/release ordering is needed.  (An acquire load
+// in the spin also discards the SM's L1 lines, which the other CTAs' binary
+// searches live on, and slowed the whole kernel down markedly.)
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_status(unsigned long long* p,
+                                             unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+// Decoupled look-back, run by warp 0 of tile `tile` whose survivors number
+// `count`: publish the aggregate, then sum the predecessors' published
+// values 32 tiles at a time, nearest first, up to and including the nearest
+// inclusive prefix; publish this tile's inclusive prefix.  Returns the
+// tile's exclusive base.  A lane waits only on a tile with a smaller ticket,
+// which is running and publishes its aggregate before it waits on anyone.
+__device__ int lookback(unsigned long long* status, int tile, int count) {
+  int lane = threadIdx.x & 31;
+  if (tile == 0) {
+    if (lane == 0) store_status(status, kInclusive | (unsigned)count);
+    return 0;
+  }
+  if (lane == 0) store_status(status + tile, kAggregate | (unsigned)count);
+  int base = 0;
+  for (int j = tile - 1;; j -= 32) {
+    int i = j - lane;
+    unsigned long long s = kInclusive;             // before tile 0: zero
+    if (i >= 0) {
+      do {
+        s = load_status(status + i);
+      } while ((s >> 32) == 0);
+    }
+    unsigned incl = __ballot_sync(0xffffffffu,
+                                  (s >> 32) == (kInclusive >> 32));
+    int stop = incl ? __ffs(incl) - 1 : 31;         // nearest inclusive lane
+    int v = lane <= stop ? (int)(unsigned)s : 0;
+    base += __reduce_add_sync(0xffffffffu, v);
+    if (incl) break;
+  }
+  if (lane == 0)
+    store_status(status + tile, kInclusive | (unsigned)(base + count));
+  return base;
+}
+
+// Port of _pruned_extend_kernel (extend.py:322): enumerate, predicate and
+// compact in one pass.  A CTA's tile is kItems1p consecutive 512-slot
+// sub-tiles, each ranked by tile_rank (double-buffered, so one barrier per
+// sub-tile suffices) and held in registers; one look-back per tile gives
+// its base.  The tile that takes the last ticket writes the true survivor
+// total (which may exceed out_cap: writes at dest >= out_cap are dropped,
+// as in the pair).  `status` (n_tiles words) and `ticket` are zero at
+// launch.
+__global__ void __launch_bounds__(kTile)
+extend_pruned_1p_kernel(Tables t, int cand_cap,
+                        const uint32_t* __restrict__ bits, int use_bitmap,
+                        int n_words, int n_vertices, Spec spec, int out_cap,
+                        unsigned long long* status, unsigned int* ticket,
+                        int* __restrict__ row_out, int* __restrict__ u_out,
+                        int* __restrict__ n_surv) {
+  __shared__ int warp_base[2][kWarps + 1];
+  __shared__ int tile_s, base_s;
+  if (threadIdx.x == 0) tile_s = (int)atomicAdd(ticket, 1u);
+  __syncthreads();
+  int tile = tile_s;
+  int total = t.offsets[t.n_parents - 1];
+  Cand c[kItems1p];
+  int rank[kItems1p];
+  int count = 0;
+#pragma unroll
+  for (int j = 0; j < kItems1p; ++j) {
+    int slot = (tile * kItems1p + j) * kTile + threadIdx.x;
+    c[j] = Cand{0, -1, false};
+    if (slot < cand_cap && slot < total)
+      c[j] = enumerate_slot(t, slot, bits, use_bitmap, n_words, n_vertices,
+                            spec);
+    int n;
+    rank[j] = count + tile_rank(c[j].keep, warp_base[j & 1], &n);
+    count += n;
+  }
+  if (threadIdx.x < 32) {
+    int base = lookback(status, tile, count);
+    if (threadIdx.x == 0) {
+      base_s = base;
+      if (tile == (int)gridDim.x - 1) *n_surv = base + count;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kItems1p; ++j) {
+    if (c[j].keep) {
+      long long dest = (long long)base_s + rank[j];
+      if (dest < out_cap) {
+        row_out[dest] = c[j].row;
+        u_out[dest] = c[j].u;
+      }
     }
   }
 }
@@ -346,6 +488,29 @@ int extend_scatter(const int* offsets, const int* starts, const int* emb,
                           static_cast<cudaStream_t>(stream)>>>(
       t, cand_cap, bits, use_bitmap, n_words, n_vertices, spec, bases,
       out_cap, row, u);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int extend_pruned_1p(const int* offsets, const int* starts, const int* emb,
+                     const int* vlo, const int* vhi, const int* col,
+                     const uint32_t* bits, int n_parents, int m, int k,
+                     int cand_cap, int use_bitmap, int n_words,
+                     int n_vertices, int required, int distinct, int greater,
+                     int src_slot_eq, int out_cap, void* scratch, int* row,
+                     int* u, int* n_surv, void* stream) {
+  // scratch: n_tiles status words, then the ticket; both must start at
+  // zero, or a stale status from the last launch corrupts the bases
+  Tables t = make_tables(offsets, starts, emb, vlo, vhi, col, n_parents, m, k);
+  Spec spec{required, distinct, greater, src_slot_eq};
+  int n_tiles = (cand_cap + kTile * kItems1p - 1) / (kTile * kItems1p);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemsetAsync(scratch, 0, (size_t)(n_tiles + 1) * 8, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  unsigned long long* status = static_cast<unsigned long long*>(scratch);
+  unsigned int* ticket = reinterpret_cast<unsigned int*>(status + n_tiles);
+  extend_pruned_1p_kernel<<<n_tiles, kTile, 0, st>>>(
+      t, cand_cap, bits, use_bitmap, n_words, n_vertices, spec, out_cap,
+      status, ticket, row, u, n_surv);
   return static_cast<int>(cudaGetLastError());
 }
 

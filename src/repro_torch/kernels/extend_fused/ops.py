@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.core.api import PredicateSpec
 from repro_torch.kernels import build
+from repro_torch.kernels.common import check_int32, launch
 from repro_torch.kernels.extend_fused import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "extend.cu"
@@ -29,7 +30,8 @@ _I = ctypes.c_int
 
 # Kernel launches per wrapper, counted where each wrapper launches.
 LAUNCHES = dict.fromkeys(("extend_candidates", "extend_count",
-                          "extend_scatter", "extend_edge"), 0)
+                          "extend_scatter", "extend_edge",
+                          "extend_pruned_1p"), 0)
 
 # Vertex slots per edge-induced embedding the edge kernel is built for
 # (E + 1 for E = 1 .. 7 edges), as the JAX package's MAX_EDGE_SLOTS.
@@ -44,37 +46,17 @@ def _lib() -> ctypes.CDLL:
     lib.extend_scatter.argtypes = ([_P] * 7 + [_I] * 11
                                    + [_P, _I] + [_P] * 3)
     lib.extend_edge.argtypes = [_P] * 10 + [_I] * 6 + [_P] * 6
+    lib.extend_pruned_1p.argtypes = [_P] * 7 + [_I] * 12 + [_P] * 5
     for fn in (lib.extend_candidates, lib.extend_count, lib.extend_scatter,
-               lib.extend_edge):
+               lib.extend_edge, lib.extend_pruned_1p):
         fn.restype = ctypes.c_int
     lib.extend_error_string.argtypes = [_I]
     lib.extend_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(name: str, **tensors: torch.Tensor) -> torch.device:
-    """All tensors int32, 1-D, contiguous, non-empty, on one device."""
-    devices = set()
-    for arg, t in tensors.items():
-        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be a contiguous 1-D int32 "
-                             f"tensor, got {t.dtype} {tuple(t.shape)}")
-        if t.numel() == 0:
-            raise ValueError(f"{name}: {arg} is empty")
-        devices.add(t.device)
-    if len(devices) != 1:
-        raise ValueError(f"{name}: tensors on several devices {devices}")
-    dev = devices.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {dev}")
-    return dev
-
-
 def _launch(name: str, fn, *args) -> None:
-    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        msg = _lib().extend_error_string(rc).decode()
-        raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")
+    launch(name, fn, _lib().extend_error_string, *args)
 
 
 def _ptr(t: torch.Tensor) -> int:
@@ -94,7 +76,7 @@ def extend_candidates(col_idx, offsets, starts, emb_flat, vlo, vhi, *,
                       k: int, cand_cap: int, n_steps: int):
     """Unpruned enumeration for cold inspection: (row, u, src_slot, conn),
     each int32[cand_cap].  See :func:`ref.extend_candidates_ref`."""
-    dev = _check("extend_candidates", col_idx=col_idx, offsets=offsets,
+    dev = check_int32("extend_candidates", col_idx=col_idx, offsets=offsets,
                  starts=starts, emb_flat=emb_flat, vlo=vlo, vhi=vhi)
     _check_parents("extend_candidates", offsets, starts, emb_flat, vlo, vhi,
                    k)
@@ -118,7 +100,7 @@ def extend_candidates(col_idx, offsets, starts, emb_flat, vlo, vhi, *,
 
 def _pruned_args(name, col_idx, offsets, starts, emb_flat, vlo, vhi, bits,
                  k, cand_cap, n_vertices, n_words, spec, conn_mode):
-    dev = _check(name, col_idx=col_idx, offsets=offsets, starts=starts,
+    dev = check_int32(name, col_idx=col_idx, offsets=offsets, starts=starts,
                  emb_flat=emb_flat, vlo=vlo, vhi=vhi, bits=bits)
     _check_parents(name, offsets, starts, emb_flat, vlo, vhi, k)
     if not 1 <= cand_cap <= 1 << 30:
@@ -203,7 +185,7 @@ def extend_edge(col_idx, edge_uid, offsets, starts, slots_flat, vlo,
                    eids_flat=eids_flat, usrc=usrc, udst=udst)
     if vmask is not None:
         tensors["vmask"] = vmask
-    dev = _check("extend_edge", **tensors)
+    dev = check_int32("extend_edge", **tensors)
     n = offsets.shape[0]
     if any(t.shape[0] != n for t in (starts, slots_flat, vlo)):
         raise ValueError("extend_edge: parent tables differ in length")
@@ -239,7 +221,8 @@ def extend_edge(col_idx, edge_uid, offsets, starts, slots_flat, vlo,
 
 
 PLAIN_VERSIONS = (ref.extend_candidates_ref, ref.extend_count_ref,
-                  ref.extend_scatter_ref, ref.extend_edge_ref)
+                  ref.extend_scatter_ref, ref.extend_edge_ref,
+                  ref.extend_pruned_1p_ref)
 
 
 def reset_counts() -> None:
@@ -274,3 +257,41 @@ def extend_pruned(col_idx, offsets, starts, emb_flat, vlo, vhi, bits, *,
     row, u = extend_scatter(col_idx, offsets, starts, emb_flat, vlo, vhi,
                             bits, bases, out_cap=out_cap, **kw)
     return row, u, incl[-1], counts
+
+
+def extend_pruned_1p(col_idx, offsets, starts, emb_flat, vlo, vhi, bits, *,
+                     k: int, cand_cap: int, out_cap: int, n_steps: int,
+                     n_vertices: int, n_words: int, spec: PredicateSpec,
+                     conn_mode: str):
+    """The single-pass pruned extend: (row int32[out_cap], u int32[out_cap],
+    n_surv int32[]), the survivors in slot order, and their true count.
+
+    One kernel enumerates once; each CTA's tile (four 512-slot sub-tiles)
+    finds its base by a decoupled look-back over the tiles before it.  The
+    buffers equal the two-pass :func:`extend_pruned`'s bit for bit.  See
+    :func:`ref.extend_pruned_1p_ref`.
+    """
+    dev, c_args = _pruned_args("extend_pruned_1p", col_idx, offsets, starts,
+                               emb_flat, vlo, vhi, bits, k, cand_cap,
+                               n_vertices, n_words, spec, conn_mode)
+    if out_cap < 1:
+        raise ValueError(f"extend_pruned_1p: out_cap={out_cap}")
+    if dev.type == "cpu":
+        return ref.extend_pruned_1p_ref(col_idx, offsets, starts, emb_flat,
+                                        vlo, vhi, bits, k=k,
+                                        cand_cap=cand_cap, out_cap=out_cap,
+                                        n_steps=n_steps,
+                                        n_vertices=n_vertices,
+                                        n_words=n_words, spec=spec,
+                                        conn_mode=conn_mode)
+    row = torch.zeros(out_cap, dtype=torch.int32, device=dev)
+    u = torch.full((out_cap,), -1, dtype=torch.int32, device=dev)
+    n_surv = torch.empty((), dtype=torch.int32, device=dev)
+    # a status word per BLOCK_C slots (at least one per tile) and the
+    # ticket, zeroed by the entry point on the stream before its launch
+    scratch = torch.empty(-(-cand_cap // ref.BLOCK_C) + 1, dtype=torch.int64,
+                          device=dev)
+    _launch("extend_pruned_1p", _lib().extend_pruned_1p, *c_args, out_cap,
+            _ptr(scratch), _ptr(row), _ptr(u), _ptr(n_surv))
+    LAUNCHES["extend_pruned_1p"] += 1
+    return row, u, n_surv

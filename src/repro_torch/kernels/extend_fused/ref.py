@@ -11,7 +11,8 @@ Each also takes an optional slot range ``slots=(lo, hi)`` and then computes
 only what slots ``lo .. hi-1`` of the same launch produce, so a launch too
 large for the plain version's temporaries can be checked piece by piece.
 For the pruned pair, ``lo`` and ``hi`` are tile-aligned (or ``hi`` is
-``cand_cap``).
+``cand_cap``); the single-pass version takes any range and the survivor
+offset of the slots before it.
 """
 from __future__ import annotations
 
@@ -160,7 +161,15 @@ def extend_scatter_ref(col_idx, offsets, starts, emb_flat, vlo, vhi, bits,
                         dtype=torch.int32).view(-1)[:hi - lo] - 1
     t0 = lo // BLOCK_C
     tile_base = bases[t0:t0 + n_tiles].repeat_interleave(BLOCK_C)[:hi - lo]
-    dest = tile_base.long() + rank
+    return _place(row, u, keep, tile_base.long() + rank, out_cap)
+
+
+extend_scatter_ref.calls = 0
+
+
+def _place(row, u, keep, dest, out_cap: int):
+    """Write each kept slot's (row, u) at ``dest`` when that is below
+    ``out_cap``; (row, u), each int32[out_cap], hold 0 and -1 elsewhere."""
     dest = torch.where(keep & (dest < out_cap), dest, out_cap)
     row_out = torch.zeros(out_cap + 1, dtype=torch.int32, device=u.device)
     u_out = torch.full((out_cap + 1,), -1, dtype=torch.int32,
@@ -170,7 +179,36 @@ def extend_scatter_ref(col_idx, offsets, starts, emb_flat, vlo, vhi, bits,
     return row_out[:out_cap], u_out[:out_cap]
 
 
-extend_scatter_ref.calls = 0
+def extend_pruned_1p_ref(col_idx, offsets, starts, emb_flat, vlo, vhi, bits,
+                         *, k: int, cand_cap: int, out_cap: int, n_steps: int,
+                         n_vertices: int, n_words: int, spec: PredicateSpec,
+                         conn_mode: str, slots=None, base: int = 0):
+    """The single-pass pruned extend (counterpart of
+    ``fused_extend_pruned_ref``): enumerate, apply the predicate, and
+    compact the survivors in slot order by one prefix sum.
+
+    Returns (row int32[out_cap], u int32[out_cap], n_surv int32[]); the
+    survivor count may exceed ``out_cap``, and lanes past ``min(n_surv,
+    out_cap)`` hold 0 and -1.  The same buffers as the two-pass pair's.
+    With ``slots=(lo, hi)`` (any range), only those slots' survivors are
+    written, from position ``base`` on (the survivors of slots before
+    ``lo``), and ``n_surv`` is ``base`` plus their number, so a launch can
+    be checked piece by piece with the offset carried from piece to piece.
+    """
+    extend_pruned_1p_ref.calls += 1
+    lo, hi = _slot_range(slots, cand_cap, tiled=False)
+    row, u, keep = _pruned_mask(col_idx, offsets, starts, emb_flat, vlo,
+                                vhi, bits, lo=lo, hi=hi, k=k,
+                                n_steps=n_steps, n_vertices=n_vertices,
+                                n_words=n_words, spec=spec,
+                                conn_mode=conn_mode)
+    incl = torch.cumsum(keep, 0, dtype=torch.int64)
+    row_out, u_out = _place(row, u, keep, base + incl - 1, out_cap)
+    n_surv = (base + incl[-1]).to(torch.int32)
+    return row_out, u_out, n_surv
+
+
+extend_pruned_1p_ref.calls = 0
 
 
 def extend_edge_ref(col_idx, edge_uid, offsets, starts, slots_flat, vlo,

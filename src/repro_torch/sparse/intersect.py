@@ -38,3 +38,28 @@ def adj_contains(row_ptr: torch.Tensor, col_idx: torch.Tensor,
         return torch.zeros(u.shape, dtype=torch.bool, device=u.device)
     found = binary_contains(col_idx, lo, hi, v, n_steps)
     return found & (u >= 0) & (v >= 0)
+
+
+def intersect_count_sorted(col_idx: torch.Tensor, lo_a: torch.Tensor,
+                           hi_a: torch.Tensor, lo_b: torch.Tensor,
+                           hi_b: torch.Tensor, max_deg: int,
+                           n_steps: int) -> torch.Tensor:
+    """|col_idx[lo_a:hi_a] ∩ col_idx[lo_b:hi_b]| per pair, int32[n_pairs]
+    (the TC hot loop; counterpart of the JAX ``intersect_count_sorted``).
+
+    Each element of segment A is searched for in segment B with
+    :func:`binary_contains`.  Only the first ``max_deg`` elements of A
+    count, indices into ``col_idx`` clip at its last element, and an empty
+    B counts 0, as in the JAX version, so the two agree bit for bit.  The
+    temporaries are ``[n_pairs, max_deg]``.
+    """
+    m = col_idx.shape[0]
+    offs = torch.arange(max_deg, dtype=torch.int32, device=col_idx.device)
+    idx = lo_a.to(torch.int32)[:, None] + offs[None, :]
+    valid = idx < hi_a[:, None]
+    targets = col_idx[idx.clamp(0, m - 1).long()].reshape(-1)
+    n = idx.shape[0]
+    flat_lo = lo_b[:, None].expand(n, max_deg).reshape(-1)
+    flat_hi = hi_b[:, None].expand(n, max_deg).reshape(-1)
+    found = binary_contains(col_idx, flat_lo, flat_hi, targets, n_steps)
+    return (found.reshape(n, max_deg) & valid).sum(dim=1, dtype=torch.int32)

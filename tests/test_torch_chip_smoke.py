@@ -5,7 +5,10 @@ kernel's plain version, piece by piece over slot ranges.  On the CPU the
 wrappers run the plain versions themselves, so these tests show that the
 pieces cover every output element and agree with the whole launch, and
 that a wrong output of any kernel stops the run; the same for the FSM
-phase's edge-kernel checks, and its scipy count against the port.
+phase's edge-kernel checks and its scipy count against the port, for the
+single-pass ``extend_pruned_1p`` checks of the ``cuda-1p`` phase (pieces
+with the survivor offset carried, the overflow rerun, the pair's buffers)
+and for the ``intersect_count`` checks of the fused-TC phase.
 """
 import dataclasses
 import importlib.util
@@ -17,6 +20,7 @@ import torch
 from repro_torch.core import make_cf_app, make_tc_app
 from repro_torch.graph.generators import rmat
 from repro_torch.kernels.extend_fused import ops
+from repro_torch.kernels.intersect import ops as intersect_ops
 
 ROOT = Path(__file__).resolve().parents[1]
 APPS = (("tc", make_tc_app()), ("4-cf", make_cf_app(4)))
@@ -126,3 +130,82 @@ def test_scipy_fsm_count_matches_the_port():
     r = Miner(g, make_fsm_app(3, ms), device="cpu").run()
     assert smoke.frequent_supports(r, ms) == want and len(want) == r.count
     assert sum(freq) == g.n_vertices and len(edges) == 10
+
+
+LOOKBACK = dict(backend="cuda-1p", names=("extend_pruned_1p",))
+
+
+@pytest.mark.parametrize("mode,pack", [("bitmap", 4 << 20), ("search", 0)])
+def test_lookback_checks_hold_every_launch(mode, pack):
+    smoke = _smoke()
+    g, expected = _graph_and_counts(smoke)
+    checks = smoke.checked_runs(g, APPS, expected, "cpu", pack_max_bytes=pack,
+                                keep="tc", chunk=512, **LOOKBACK)
+    assert checks.launches == {"extend_pruned_1p": 6}
+    assert checks.err == {"extend_pruned_1p": 0}
+    assert checks.pair_matches == 6 and checks.overflow_cases >= 1
+    assert mode in checks.modes and sorted(checks.kept) == [
+        "extend_pruned_1p"]
+    assert ops.extend_pruned_1p.__name__ == "extend_pruned_1p"  # restored
+
+
+def _wrong_1p(fn):
+    def run(*a, **kw):
+        row, u, n_surv = fn(*a, **kw)
+        return row, u[torch.tensor([1, 0] + list(range(2, u.shape[0])))], \
+            n_surv
+    return run
+
+
+def _wrong_total(fn):
+    def run(*a, **kw):
+        row, u, n_surv = fn(*a, **kw)
+        return row, u, n_surv + 1
+    return run
+
+
+@pytest.mark.parametrize("wrong", [_wrong_1p, _wrong_total],
+                         ids=["order", "total"])
+def test_lookback_checks_stop_at_a_wrong_kernel(monkeypatch, wrong):
+    smoke = _smoke()
+    g, expected = _graph_and_counts(smoke)
+    monkeypatch.setattr(ops, "extend_pruned_1p",
+                        wrong(ops.extend_pruned_1p))
+    with pytest.raises(AssertionError,
+                       match="extend_pruned_1p.*plain version"):
+        smoke.checked_runs(g, APPS, expected, "cpu", chunk=512, **LOOKBACK)
+
+
+def test_lookback_checks_stop_where_the_pair_differs(monkeypatch):
+    smoke = _smoke()
+    g, expected = _graph_and_counts(smoke)
+    monkeypatch.setattr(ops, "extend_pruned",
+                        _wrong_1p(ops.extend_pruned_1p))
+    with pytest.raises(AssertionError, match="two-pass pair"):
+        smoke.checked_runs(g, APPS, expected, "cpu", chunk=512, **LOOKBACK)
+
+
+def test_intersect_checks_hold_every_pair():
+    smoke = _smoke()
+    g, expected = _graph_and_counts(smoke)
+    checks = smoke.tc_fused_checked(g, expected["tc"], "cpu", keep=True,
+                                    chunk=512)
+    assert checks.launches == {"intersect_count": 1}
+    assert checks.err == {"intersect_count": 0}
+    a, kw = checks.kept["intersect_count"]
+    assert a[1].shape[0] > 512 // kw["max_deg"]       # several pieces
+    assert intersect_ops.intersect_count.__name__ == "intersect_count"
+
+
+def test_intersect_checks_stop_at_a_wrong_kernel(monkeypatch):
+    smoke = _smoke()
+    g, expected = _graph_and_counts(smoke)
+    fn = intersect_ops.intersect_count
+
+    def wrong(*a, **kw):
+        out = fn(*a, **kw).clone()
+        out[-1] += 1
+        return out
+    monkeypatch.setattr(intersect_ops, "intersect_count", wrong)
+    with pytest.raises(AssertionError, match="intersect_count.*plain version"):
+        smoke.tc_fused_checked(g, expected["tc"], "cpu", chunk=512)
