@@ -1,13 +1,14 @@
 """Carry state across from the JAX package.
 
-A mining system has no weights to carry across; what it has is the input
-graph and the capacity plans its executor recorded.  ``graph_from_arrays``
-takes the numpy arrays of a ``repro.graph.csr.CSRGraph`` (labels too);
-``plan_from_json`` and ``plan_to_json`` move a :class:`MiningPlan` in the
-JAX package's JSON schema, vertex plans and FSM's edge plans with their
-filter capacities alike, so a plan recorded by the JAX executor replays in
-the port and back.  Nothing here imports the JAX package: the exchange is numpy arrays
-and JSON text.
+For mining, what carries across is the input graph and the capacity plans
+its executor recorded.  ``graph_from_arrays`` takes the numpy arrays of a
+``repro.graph.csr.CSRGraph`` (labels too); ``plan_from_json`` and
+``plan_to_json`` move a :class:`MiningPlan` in the JAX package's JSON
+schema, vertex plans and FSM's edge plans with their filter capacities
+alike, so a plan recorded by the JAX executor replays in the port and
+back.  For the transformer, ``transformer_params_from_numpy`` takes the
+JAX parameter tree as numpy arrays, bf16 leaves bit for bit.  Nothing here
+imports the JAX package: the exchange is numpy arrays and JSON text.
 """
 from __future__ import annotations
 
@@ -40,6 +41,29 @@ def graph_from_arrays(row_ptr, col_idx, labels=None,
         col_idx=torch.from_numpy(ci.astype(np.int32)).to(dev),
         n_vertices=int(rp.shape[0] - 1), n_edges=int(ci.shape[0]),
         labels=lab)
+
+
+def _tensor(arr, dev: torch.device) -> torch.Tensor:
+    arr = np.array(arr, order="C")        # a writable contiguous copy
+    if arr.dtype.name == "bfloat16":
+        # numpy knows bf16 only through ml_dtypes, which torch does not
+        # read: carry the bits
+        arr = arr.view(np.uint16)
+        return torch.from_numpy(arr).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(arr).to(dev)
+
+
+def transformer_params_from_numpy(tree, device: DeviceSpec = None) -> dict:
+    """The port's transformer parameters from the JAX ones as numpy arrays
+    (a nested dict, e.g. ``jax.tree.map(np.asarray, params)``), with the
+    same names, shapes and dtypes; bf16 leaves keep their bits."""
+    dev = resolve_device(device)
+
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        return _tensor(node, dev)
+    return convert(tree)
 
 
 def plan_from_json(text: str) -> MiningPlan:

@@ -209,3 +209,63 @@ def test_intersect_checks_stop_at_a_wrong_kernel(monkeypatch):
     monkeypatch.setattr(intersect_ops, "intersect_count", wrong)
     with pytest.raises(AssertionError, match="intersect_count.*plain version"):
         smoke.tc_fused_checked(g, expected["tc"], "cpu", chunk=512)
+
+
+def test_flash_checks_hold_every_serving_launch():
+    """Every flash-attention launch of serve_lm, in pieces of query rows."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    smoke = _smoke()
+    sets = {"A": (2, 120, 3), "B": (1, 200, 2)}
+    checks = smoke.lm_checked(get_arch("qwen3-0.6b"), sets, smoke=True,
+                              device="cpu", chunk=512)
+    assert checks.launches == {"flash_attention": 4}   # 2 layers, 2 sets
+    assert checks.err == {"flash_attention": 0.0}
+    (a, kw), = checks.kept.values()
+    assert tuple(a[0].shape) == (2, 4, 120, 32)       # set A, layer 0
+    assert flash_ops.flash_attention.__name__ == "flash_attention"
+
+
+def test_flash_checks_stop_at_a_wrong_kernel(monkeypatch):
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    smoke = _smoke()
+    fn = flash_ops.flash_attention
+
+    def wrong(*a, **kw):
+        out = fn(*a, **kw).clone()
+        out[:, :, -1] += 1e-3                          # the last query row
+        return out
+    monkeypatch.setattr(flash_ops, "flash_attention", wrong)
+    with pytest.raises(AssertionError, match="rows 119..120"):
+        smoke.lm_checked(get_arch("qwen3-0.6b"), {"A": (2, 120, 2)},
+                         smoke=True, device="cpu", chunk=512)
+
+
+def test_attention_pairs_count_the_causal_mask():
+    smoke = _smoke()
+    for lq, lk in ((1, 5), (3, 3), (4, 9), (4096, 4096)):
+        rows = torch.arange(lq)[:, None] + (lk - lq)
+        mask = torch.arange(lk)[None, :] <= rows
+        assert smoke.attention_pairs(lq, lk) == int(mask.sum())
+    assert smoke.attention_pairs(3, 7, causal=False) == 21
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segsum_checks_hold_and_stop(monkeypatch, dtype):
+    from repro_torch.kernels.segsum import ops as segsum_ops
+    smoke = _smoke()
+    g = torch.Generator().manual_seed(0)
+    data = torch.randn(500, 20, generator=g).to(dtype)
+    seg = torch.randint(-1, 31, (500,), generator=g, dtype=torch.int32)
+    checks = smoke.KernelChecks(names=("sorted_segment_sum",))
+    with checks:
+        segsum_ops.sorted_segment_sum(data, seg, 30)
+    assert checks.launches == {"sorted_segment_sum": 1}
+    assert checks.err == {"sorted_segment_sum": 0.0}
+    fn = segsum_ops.sorted_segment_sum
+    monkeypatch.setattr(segsum_ops, "sorted_segment_sum",
+                        lambda *a: fn(*a) + 0.5)
+    with pytest.raises(AssertionError, match="not close"):
+        with smoke.KernelChecks(names=("sorted_segment_sum",)):
+            segsum_ops.sorted_segment_sum(data, seg, 30)

@@ -1,7 +1,8 @@
 """PyTorch port on the card: each CUDA kernel against its plain PyTorch
 version on the same CUDA tensors, and the cuda and cuda-1p backends'
 counts (and FSM codes and supports), and the fused triangle count,
-against the plain backend's.
+against the plain backend's; flash attention and the segment sum against
+their plain versions, and the wrappers' refusals.
 
 Every test here is marked ``gpu`` and skips without a CUDA device.  The
 file imports neither JAX nor the JAX package, so it runs on a machine that
@@ -21,6 +22,10 @@ from repro_torch.core.api import (PredicateSpec, make_ctx,
 from repro_torch.graph import generators as TG
 from repro_torch.graph.csr import pack_adjacency
 from repro_torch.kernels.extend_fused import ops, ref
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention import ref as flash_ref
+from repro_torch.kernels.segsum import ops as segsum_ops
+from repro_torch.kernels.segsum import ref as segsum_ref
 from repro_torch.kernels.intersect import ops as intersect_ops
 from repro_torch.kernels.intersect import ref as intersect_ref
 
@@ -259,3 +264,154 @@ def test_cuda_fsm_matches_plain_backend(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert np.array_equal(codes.cpu().numpy(), want.codes)
+
+
+# -- flash attention ---------------------------------------------------------
+
+# b, hq, hkv, lq, lk, d, causal: the JAX package's CASES
+# (tests/test_kernels.py), a ragged key length, and Qwen3-0.6B's prefill
+FLASH_CASES = [
+    (2, 4, 2, 128, 128, 64, True),
+    (1, 8, 8, 256, 256, 64, True),
+    (2, 4, 1, 64, 128, 32, False),
+    (1, 2, 2, 128, 384, 64, True),
+    (1, 4, 2, 1, 256, 64, True),
+    (2, 4, 4, 64, 256, 128, True),
+    (1, 4, 2, 100, 200, 64, True),
+    (2, 4, 2, 37, 200, 32, False),
+    (1, 16, 8, 4096, 4096, 128, True),
+]
+
+
+def _qkv(device, b, hq, hkv, lq, lk, d, dtype, seed=0):
+    g = torch.Generator(device).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=device).to(dtype)
+                 for shape in ((b, hq, lq, d), (b, hkv, lk, d),
+                               (b, hkv, lk, d)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,lq,lk,d,causal", FLASH_CASES)
+def test_flash_attention_matches_plain(cuda, b, hq, hkv, lq, lk, d, causal,
+                                       dtype):
+    dt = getattr(torch, dtype)
+    q, k, v = _qkv(cuda, b, hq, hkv, lq, lk, d, dt)
+    flash_ops.reset_counts()
+    got = flash_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES["flash_attention"] == 1
+    assert flash_ref.attention_ref.calls == 0
+    want = flash_ref.attention_ref(q, k, v, causal=causal)
+    assert got.dtype == dt and got.shape == want.shape
+    if dt == torch.float32:
+        # f32 throughout, sums in another order: the JAX tests' 2e-5
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    else:
+        # both sum in f32 and round once to bf16: bf16's default tolerance
+        torch.testing.assert_close(got, want)
+
+
+def test_flash_attention_refuses(cuda):
+    q, k, v = _qkv(cuda, 1, 4, 2, 64, 128, 64, torch.float32)
+    call = flash_ops.flash_attention
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        call(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        call(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="on cpu"):
+        call(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        call(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        call(*_qkv(cuda, 1, 4, 2, 64, 128, 48, torch.float32))
+    with pytest.raises(ValueError, match="Lq <= Lk"):
+        call(*_qkv(cuda, 1, 4, 2, 129, 128, 64, torch.float32))
+    with pytest.raises(ValueError, match="key/value heads"):
+        call(*_qkv(cuda, 1, 4, 3, 64, 128, 64, torch.float32))
+    with pytest.raises(ValueError, match="aligned"):
+        flat = torch.zeros(64 * 64 + 1, device=cuda)
+        call(flat[1:].reshape(1, 1, 64, 64), k[:, :1, :64], v[:, :1, :64])
+
+
+# -- segment sum -------------------------------------------------------------
+
+
+def _segsum_inputs(device, n, d, s, dtype, sort=True, seed=0):
+    g = torch.Generator(device).manual_seed(seed)
+    data = torch.randn(n, d, generator=g, device=device).to(dtype)
+    seg = torch.randint(-1, s + 1, (n,), generator=g, device=device,
+                        dtype=torch.int32)         # -1 and s add nothing
+    if sort:
+        seg = torch.sort(seg).values
+    return data, seg
+
+
+@pytest.mark.parametrize("sort", [True, False], ids=["sorted", "unsorted"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,d,s", [(1000, 64, 37), (257, 128, 5),
+                                   (64, 8, 64), (100_000, 100, 4000),
+                                   (3000, 200, 1)])
+def test_sorted_segment_sum_matches_plain(cuda, n, d, s, dtype, sort):
+    dt = getattr(torch, dtype)
+    data, seg = _segsum_inputs(cuda, n, d, s, dt, sort)
+    segsum_ops.reset_counts()
+    got = segsum_ops.sorted_segment_sum(data, seg, s)
+    torch.cuda.synchronize()
+    assert segsum_ops.LAUNCHES["sorted_segment_sum"] == 1
+    assert segsum_ref.sorted_segment_sum_ref.calls == 0
+    want = segsum_ref.sorted_segment_sum_ref(data, seg, s)
+    assert got.dtype == dt and got.shape == (s, d)
+    # both sum in f32, in another order (atomic adds): sums of up to a few
+    # thousand unit normals agree to 1e-4; bf16 rounds both once at the end
+    tol = dict(atol=1e-4, rtol=1e-5) if dt == torch.float32 else {}
+    torch.testing.assert_close(got, want, **tol)
+
+
+def test_sorted_segment_sum_refuses(cuda):
+    data, seg = _segsum_inputs(cuda, 100, 16, 5, torch.float32)
+    call = segsum_ops.sorted_segment_sum
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        call(data.half(), seg, 5)
+    with pytest.raises(ValueError, match="int32"):
+        call(data, seg.long(), 5)
+    with pytest.raises(ValueError, match="ids on cpu"):
+        call(data, seg.cpu(), 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        call(data.t(), seg, 5)
+    with pytest.raises(ValueError, match="ids for"):
+        call(data, seg[:50], 5)
+    with pytest.raises(ValueError, match="n_segments"):
+        call(data, seg, -1)
+
+
+def test_serve_lm_on_the_card_matches_the_cpu(cuda):
+    """Qwen3's SMOKE widths in f32: serve_lm on the card (the flash kernel,
+    2 launches) decodes the tokens that the CPU decodes from the same
+    weights and prompt, and the prefill logits agree within 1e-4."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import transformer as T
+
+    arch = get_arch("qwen3-0.6b")
+    cfg, b, s, gen = arch.smoke, 2, 100, 6
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 512, (b, s)).astype(np.int32))
+    flash_ops.reset_counts()
+    got = serve_lm(arch, True, b, s, gen, seed=1, device=cuda, prompt=prompt)
+    assert flash_ops.LAUNCHES["flash_attention"] == 2
+    assert flash_ref.attention_ref.calls == 0
+    # serve_lm's weights, on the CPU
+    params = T.init_params(cfg, torch.Generator(cuda).manual_seed(1),
+                           device="cpu")
+    logits, cache = T.prefill(cfg, params, prompt, cache_len=s + gen)
+    card, _ = T.prefill(cfg, T.init_params(
+        cfg, torch.Generator(cuda).manual_seed(1), device=cuda),
+        prompt.to(cuda))
+    torch.testing.assert_close(card.cpu(), logits, atol=1e-4, rtol=0)
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    want = [tok]
+    for i in range(gen - 1):
+        logits, cache = T.decode_step(cfg, params, cache, tok, s + i)
+        tok = torch.argmax(logits[:, 0], -1)[:, None].to(torch.int32)
+        want.append(tok)
+    assert torch.equal(got.cpu(), torch.cat(want, 1))

@@ -43,6 +43,9 @@ def test_port_imports_and_mines_with_jax_blocked():
         "import repro_torch.core, repro_torch.interop\n"
         "import repro_torch.kernels.build\n"
         "import repro_torch.kernels.extend_fused.ops\n"
+        "import repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.kernels.segsum.ops\n"
+        "import repro_torch.launch.serve\n"
         "from repro_torch.core import Miner, make_cf_app\n"
         "from repro_torch.graph.generators import clique\n"
         "m = Miner(clique(6, device='cpu'), make_cf_app(4), device='cpu')\n"
