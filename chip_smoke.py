@@ -57,13 +57,16 @@ Phases (any failure raises, and the script exits non-zero):
               new), every ``flash_attention`` launch of both held against
               ``attention_ref`` on the card (in pieces of query rows), the
               kernel timed on set A's layer-0 arguments beside the plain
-              version and ``scaled_dot_product_attention``; then each set
-              served again with the launches counted (28 per prefill, no
-              plain call), its prefill time, decode rate and peak memory;
-              a profile of set A's prefill and of one decode step; then
-              the model in f32 (batch 1, prompt 512, TF32 off):
-              prefill on the kernel against prefill on the plain attention
-              (last-token logits within 1e-3) and the same 8 greedy tokens.
+              version and ``scaled_dot_product_attention``, and on set B's
+              beside the latter alone (the plain version's f32 scores
+              would take 64 GB at 32k); then each set served again with
+              the launches counted (28 per prefill, all of them the
+              tensor-core variant, no plain call), its prefill time,
+              decode rate and peak memory; a profile of set A's prefill
+              and of one decode step; then the model in f32 (batch 1,
+              prompt 512, TF32 off, the FMA variant): prefill on the
+              kernel against prefill on the plain attention (last-token
+              logits within 1e-3) and the same 8 greedy tokens.
 9. segsum   — the segment sum ``sorted_segment_sum`` at ogb_products'
               scale (``configs/shapes.py``: 61,859,140 rows of 100 f32
               values into 2,449,029 sorted segments, 24.7 GB): sorted,
@@ -848,17 +851,19 @@ def lm_checked(arch, sets=LM_SETS, smoke: bool = False, device=None,
                chunk: int = 1 << 25) -> "KernelChecks":
     """The request ``sets`` through ``serve_lm`` (at the arch's full width
     unless ``smoke``) with every ``flash_attention`` launch held against
-    its plain version; keeps the first set's first launch (its layer 0) for
-    timing."""
+    its plain version; keeps each set's first launch (its layer 0) in
+    ``layer0`` by set, for timing."""
     import torch
     from repro_torch.launch.serve import serve_lm
 
     checks = KernelChecks(chunk, names=tuple(FLASH_REPLACES))
+    checks.layer0 = {}
     with checks:
-        for i, (label, (batch, prompt, gen)) in enumerate(sets.items()):
-            checks.keep = i == 0
+        for label, (batch, prompt, gen) in sets.items():
+            checks.keep = True
             t0 = time.perf_counter()
             serve_lm(arch, smoke, batch, prompt, gen, seed=0, device=device)
+            checks.layer0[label] = checks.kept.pop("flash_attention")
             log(f"[check] lm set {label}: served with every launch checked "
                 f"in {time.perf_counter() - t0:.1f} s")
             if torch.cuda.is_available():
@@ -872,11 +877,18 @@ def lm_checked(arch, sets=LM_SETS, smoke: bool = False, device=None,
     return checks
 
 
-def time_flash(a, kw) -> dict:
-    """CUDA-event times of the kernel, its plain version and
-    ``scaled_dot_product_attention`` on one launch's arguments, the two
-    outputs compared, and the bound: the larger of the flops at the bf16
-    tensor-core rate and the bytes at the memory rate."""
+# the kernel variant a flash_attention launch of each dtype must run
+FLASH_VARIANTS = {"bfloat16": "tensor_core", "float32": "fma"}
+
+
+def time_flash(a, kw, plain: bool = True) -> dict:
+    """CUDA-event times of the kernel, its plain version (unless ``plain``
+    is False) and ``scaled_dot_product_attention`` on one launch's
+    arguments, the kernel's output held against the plain version's, the
+    variant the timed launches ran, and the bound: the larger of the flops
+    at the bf16 tensor-core rate and the bytes at the memory rate.  The
+    flops are 4 d per (query, key) pair: the tensor-core variant's extra
+    product for the split P (P_lo V) is not counted as work."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
@@ -884,14 +896,28 @@ def time_flash(a, kw) -> dict:
     q, k, v = a
     b, hq, lq, d = q.shape
     lk = k.shape[2]
+    before = dict(ops.VARIANT_LAUNCHES)
     ms, got = cuda_ms(lambda: ops.flash_attention(q, k, v, **kw), reps=10)
-    plain_ms, want = cuda_ms(lambda: ref.attention_ref(q, k, v, **kw), reps=2)
+    ran = [name for name, n in ops.VARIANT_LAUNCHES.items()
+           if n != before[name]]
+    want_variant = FLASH_VARIANTS[str(q.dtype).removeprefix("torch.")]
+    if ran != [want_variant]:
+        raise AssertionError(f"flash_attention {q.dtype}: ran {ran}, not "
+                             f"{want_variant}")
     lib_ms, lib = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=kw.get("causal", True), enable_gqa=True), reps=10)
-    err = float((got.float() - want.float()).abs().max())
-    lib_err = float((lib.float() - want.float()).abs().max())
-    torch.testing.assert_close(got, want)
-    del got, want, lib
+    plain_ms = err = None
+    plain_msg = "plain not timed"
+    if plain:
+        plain_ms, want = cuda_ms(lambda: ref.attention_ref(q, k, v, **kw),
+                                 reps=2)
+        err = float((got.float() - want.float()).abs().max())
+        lib_err = float((lib.float() - want.float()).abs().max())
+        torch.testing.assert_close(got, want)
+        plain_msg = (f"plain {plain_ms:.3f} ms; scaled_dot_product_attention "
+                     f"max_abs_err {lib_err:.3g} against the plain version")
+        del want
+    del got, lib
     flops = 4 * b * hq * d * attention_pairs(lq, lk, kw.get("causal", True))
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     bound_s = {"operations": flops / BF16_FLOPS_PER_S,
@@ -901,11 +927,12 @@ def time_flash(a, kw) -> dict:
            "bound_ms": bound_s[bound_by] * 1e3, "bound_by": bound_by,
            "max_abs_err": err}
     log(f"[timing] flash_attention (q {tuple(q.shape)}, k {tuple(k.shape)}, "
-        f"{q.dtype}): {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s; plain "
-        f"{plain_ms:.3f} ms, scaled_dot_product_attention {lib_ms:.3f} ms "
-        f"(max_abs_err {lib_err:.3g} against the plain version), bound "
+        f"{q.dtype}, variant {want_variant}): {ms:.3f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s, {row['bound_ms'] / ms:.3f} of the "
+        f"bound; scaled_dot_product_attention {lib_ms:.3f} ms, "
+        f"{flops / lib_ms / 1e9:.1f} TFLOP/s; {plain_msg}), bound "
         f"{row['bound_ms']:.4f} ms by {bound_by}: {flops} flops, {nbytes} "
-        f"B), max_abs_err {err:.3g}")
+        f"B), max_abs_err {err if err is None else f'{err:.3g}'}")
     torch.cuda.empty_cache()
     return row
 
@@ -925,22 +952,26 @@ def lm_main(arch, label: str) -> int:
     stats: dict = {}
     tokens = serve_lm(arch, False, batch, prompt, gen, seed=0, stats=stats)
     launches = ops.LAUNCHES["flash_attention"]
+    variants = dict(ops.VARIANT_LAUNCHES)
     plain = ref.attention_ref.calls
     peak = torch.cuda.max_memory_allocated()
     rate = stats["decode_tokens"] / stats["decode_s"]
     log(f"[main] lm set {label} (batch {batch}, prompt {prompt}, {gen} new "
         f"tokens): prefill {stats['prefill_s']:.3f} s, decode "
         f"{stats['decode_tokens']} tokens in {stats['decode_s']:.3f} s "
-        f"({rate:.1f} tokens/s), peak {peak} B, launches {launches}, plain "
-        f"calls {plain}, first tokens {tokens[0, :8].tolist()}")
+        f"({rate:.1f} tokens/s), peak {peak} B, launches {launches} "
+        f"{variants}, plain calls {plain}, first tokens "
+        f"{tokens[0, :8].tolist()}")
     vocab = arch.config.vocab
     if tuple(tokens.shape) != (batch, gen) or not (
             (tokens >= 0) & (tokens < vocab)).all():
         raise AssertionError(f"lm set {label}: tokens {tuple(tokens.shape)} "
                              f"outside [0, {vocab})")
-    if launches != arch.config.n_layers or plain:
-        raise AssertionError(f"lm set {label}: {launches} launches, {plain} "
-                             "plain calls")
+    n_layers = arch.config.n_layers
+    if launches != n_layers or plain or variants != {"tensor_core": n_layers,
+                                                     "fma": 0}:
+        raise AssertionError(f"lm set {label}: {launches} launches "
+                             f"{variants}, {plain} plain calls")
     return launches
 
 
@@ -986,6 +1017,7 @@ def lm_f32_end_to_end(arch, prompt_len: int = 512, gen: int = 8) -> None:
                            device="cuda", dtype=torch.int32)
     kernel = ops.flash_attention
     runs = {}
+    ops.reset_counts()
     for name, attention in (("kernel", kernel), ("plain", ref.attention_ref)):
         ops.flash_attention = attention
         try:
@@ -1000,10 +1032,16 @@ def lm_f32_end_to_end(arch, prompt_len: int = 512, gen: int = 8) -> None:
     log(f"[main] lm f32 (TF32 off), prompt {prompt_len}: last-token logits "
         f"differ by {err:.3g} (logits range "
         f"{float(runs['plain'][0].abs().max()):.3g}), {gen} greedy tokens "
-        f"equal: {same} {runs['kernel'][1][0].tolist()}")
+        f"equal: {same} {runs['kernel'][1][0].tolist()}, kernel launches "
+        f"{ops.VARIANT_LAUNCHES}")
     if not err <= 1e-3 or not same:
         raise AssertionError("lm f32: the kernel's prefill differs from the "
                              "plain attention's")
+    # the kernel's run: one launch a layer in T.prefill and in serve_lm
+    if ops.VARIANT_LAUNCHES != {"tensor_core": 0, "fma": 2 * cfg.n_layers}:
+        raise AssertionError(f"lm f32: kernel launches "
+                             f"{ops.VARIANT_LAUNCHES}, not the FMA variant "
+                             f"once a layer a prefill")
     del params, runs
     torch.cuda.empty_cache()
 
@@ -1244,8 +1282,10 @@ def main() -> int:
     t_phase = time.perf_counter()
     arch = get_arch("qwen3-0.6b")
     checks_lm = lm_checked(arch)
-    a, kw = checks_lm.kept.pop("flash_attention")
+    a, kw = checks_lm.layer0.pop("A")
     timing["flash_attention"] = time_flash(a, kw)
+    a, kw = checks_lm.layer0.pop("B")
+    time_flash(a, kw, plain=False)
     del a, kw
     launches["flash_attention"] = sum(lm_main(arch, label)
                                       for label in LM_SETS)

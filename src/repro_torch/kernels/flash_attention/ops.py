@@ -4,9 +4,11 @@
 contiguous, one device, head dim 32, 64 or 128, ``Lq <= Lk``) and
 dispatches on their device: a CPU tensor runs the plain version in
 ``ref.py``; a CUDA tensor launches the kernel of ``csrc/flash.cu`` on the
-current stream, or raises.  ``LAUNCHES`` counts its kernel launches and
-nothing else.  The library is built and loaded at the first launch, never
-at import.
+current stream, or raises.  The kernel has two variants, chosen by dtype
+alone: bf16 runs on the tensor cores (wgmma fed by TMA), f32 on the FMA
+pipes.  ``LAUNCHES`` counts its kernel launches and nothing else, and
+``VARIANT_LAUNCHES`` counts them again by variant.  The library is built
+and loaded at the first launch, never at import.
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 LAUNCHES = {"flash_attention": 0}
+VARIANT_LAUNCHES = {"tensor_core": 0, "fma": 0}
+_VARIANTS = {torch.bfloat16: "tensor_core", torch.float32: "fma"}
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -87,10 +91,14 @@ def flash_attention(q, k, v, *, causal: bool = True,
            _DTYPES[q.dtype], b, hq, k.shape[1], lq, k.shape[2], d,
            int(causal), float(sm_scale))
     LAUNCHES["flash_attention"] += 1
+    VARIANT_LAUNCHES[_VARIANTS[q.dtype]] += 1
     return out
 
 
 def reset_counts() -> None:
-    """Zero ``LAUNCHES`` and the plain version's ``calls``."""
+    """Zero ``LAUNCHES``, ``VARIANT_LAUNCHES`` and the plain version's
+    ``calls``."""
     LAUNCHES["flash_attention"] = 0
+    for variant in VARIANT_LAUNCHES:
+        VARIANT_LAUNCHES[variant] = 0
     ref.attention_ref.calls = 0

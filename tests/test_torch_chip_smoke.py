@@ -221,9 +221,19 @@ def test_flash_checks_hold_every_serving_launch():
                               device="cpu", chunk=512)
     assert checks.launches == {"flash_attention": 4}   # 2 layers, 2 sets
     assert checks.err == {"flash_attention": 0.0}
-    (a, kw), = checks.kept.values()
-    assert tuple(a[0].shape) == (2, 4, 120, 32)       # set A, layer 0
+    assert list(checks.layer0) == ["A", "B"]          # each set's layer 0
+    assert tuple(checks.layer0["A"][0][0].shape) == (2, 4, 120, 32)
+    assert tuple(checks.layer0["B"][0][0].shape) == (1, 4, 200, 32)
     assert flash_ops.flash_attention.__name__ == "flash_attention"
+
+
+def test_flash_variants_name_the_wrappers_counts():
+    """time_flash expects each dtype's variant by the names the wrapper
+    counts under."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    smoke = _smoke()
+    assert set(smoke.FLASH_VARIANTS.values()) == set(
+        flash_ops.VARIANT_LAUNCHES)
 
 
 def test_flash_checks_stop_at_a_wrong_kernel(monkeypatch):

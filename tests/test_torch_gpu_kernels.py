@@ -269,7 +269,10 @@ def test_cuda_fsm_matches_plain_backend(cuda):
 # -- flash attention ---------------------------------------------------------
 
 # b, hq, hkv, lq, lk, d, causal: the JAX package's CASES
-# (tests/test_kernels.py), a ragged key length, and Qwen3-0.6B's prefill
+# (tests/test_kernels.py), a ragged key length, and Qwen3-0.6B's prefill;
+# then shapes across the tensor-core kernel's 128-row and 128-key tiles:
+# ragged lq and lk, one query over 4,100 keys, lq < lk bidirectional, GQA
+# groups of 4 and 8, d = 32 and 64 at 1,000 tokens, and an 8k prefill
 FLASH_CASES = [
     (2, 4, 2, 128, 128, 64, True),
     (1, 8, 8, 256, 256, 64, True),
@@ -280,6 +283,14 @@ FLASH_CASES = [
     (1, 4, 2, 100, 200, 64, True),
     (2, 4, 2, 37, 200, 32, False),
     (1, 16, 8, 4096, 4096, 128, True),
+    (1, 4, 2, 200, 333, 128, True),
+    (1, 4, 2, 1, 4100, 128, True),
+    (1, 4, 2, 300, 700, 128, False),
+    (2, 8, 2, 257, 385, 64, True),
+    (1, 8, 1, 129, 1000, 128, True),
+    (1, 4, 2, 1000, 1000, 32, True),
+    (1, 4, 2, 1000, 1000, 64, True),
+    (1, 16, 8, 8192, 8192, 128, True),
 ]
 
 
@@ -309,6 +320,51 @@ def test_flash_attention_matches_plain(cuda, b, hq, hkv, lq, lk, d, causal,
     else:
         # both sum in f32 and round once to bf16: bf16's default tolerance
         torch.testing.assert_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_takes_sm_scale(cuda, dtype):
+    """A scale other than d^-0.5 reaches both variants (the tensor-core one
+    folds it into its base-2 exponent)."""
+    dt = getattr(torch, dtype)
+    q, k, v = _qkv(cuda, 1, 4, 2, 150, 300, 64, dt)
+    got = flash_ops.flash_attention(q, k, v, sm_scale=0.3)
+    want = flash_ref.attention_ref(q, k, v, sm_scale=0.3)
+    tol = dict(atol=2e-5, rtol=0) if dt == torch.float32 else {}
+    torch.testing.assert_close(got, want, **tol)
+
+
+def test_flash_attention_long_flat_sums_hold_bf16_tolerance(cuda):
+    """Near-uniform attention over 32,768 keys whose values are +-(1 + u) in
+    two halves: the running sums of P V reach ~16,000 while the outputs are
+    near zero, where ``assert_close``'s bf16 atol of 1e-5 binds.  A kernel
+    that kept all 256 tiles' sums in the tensor cores' accumulator, whose
+    additions truncate, drifts past it; each tile's P V is added to O on
+    the FMA pipes instead."""
+    g = torch.Generator(cuda).manual_seed(0)
+    lq, lk = 256, 32768
+    q = (0.1 * torch.randn(1, 2, lq, 128, generator=g, device=cuda))
+    k = torch.randn(1, 1, lk, 128, generator=g, device=cuda)
+    sign = torch.where(torch.arange(lk, device=cuda) < lk // 2, 1.0, -1.0)
+    v = sign[:, None] * (1 + 0.1 * torch.rand(1, 1, lk, 128, generator=g,
+                                              device=cuda))
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    got = flash_ops.flash_attention(q, k, v, causal=False)
+    want = flash_ref.attention_ref(q, k, v, causal=False)
+    torch.testing.assert_close(got, want)
+
+
+def test_flash_attention_counts_each_variant(cuda):
+    """A bf16 launch runs the tensor-core variant, an f32 launch the FMA
+    one; ``reset_counts`` zeroes both counts."""
+    flash_ops.reset_counts()
+    for dt in (torch.bfloat16, torch.bfloat16, torch.float32):
+        flash_ops.flash_attention(*_qkv(cuda, 1, 4, 2, 64, 200, 128, dt))
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES["flash_attention"] == 3
+    assert flash_ops.VARIANT_LAUNCHES == {"tensor_core": 2, "fma": 1}
+    flash_ops.reset_counts()
+    assert flash_ops.VARIANT_LAUNCHES == {"tensor_core": 0, "fma": 0}
 
 
 def test_flash_attention_refuses(cuda):
