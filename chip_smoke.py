@@ -51,7 +51,27 @@ Phases (any failure raises, and the script exits non-zero):
               (counts equal to scipy, no plain call and no launch of the
               pair, the warm replay free of device syncs), and a warm-run
               profile of 4-CF.
-8. lm       — Qwen3-0.6B at full width in bf16 (random weights from seed 0)
+8. mc       — k-motif counting and compiled patterns, the state,
+              canonical and labeled variants of the pruned kernels.
+              Checked runs (every launch against its plain version, state
+              buffers included, cold and warm, on ``cuda`` and
+              ``cuda-1p``): 3-MC, 4-MC (the pattern-set trie: a branch set
+              with its state column), 4-MC's ``memo`` mode (the canonical
+              test), a directed and a symmetric pattern set on
+              ``rmat(8, 16, seed=0)`` with and without the pack;
+              ``pattern_app(diamond)`` on ``rmat(10, 16, seed=0)`` and the
+              labeled chain 0-1-2 on ``rmat(12, 8, seed=0, labels=3)``.
+              Then the main sizes, 3-MC on ``rmat(15, 16, seed=0)``
+              (885,076,244 level-2 candidates), 4-MC and the diamond on
+              ``rmat(10, 16, seed=0)``: checked the same way (the plain
+              versions over 2^25-slot pieces), then counted, cold and warm
+              on both backends, each count and p_map against a scipy
+              census computed here, no plain call, and the two backends'
+              levels (vid, idx, state) equal.  Then the branch-set + state variant
+              of ``extend_count``, ``extend_scatter`` and
+              ``extend_pruned_1p`` timed on 4-MC's level-3 arguments, and a
+              warm-run profile of 4-MC.
+9. lm       — Qwen3-0.6B at full width in bf16 (random weights from seed 0)
               served through ``serve_lm``: request set A (batch 4, prompt
               4,096 tokens, 32 new) and set B (batch 1, prompt 32,768, 8
               new), every ``flash_attention`` launch of both held against
@@ -67,7 +87,7 @@ Phases (any failure raises, and the script exits non-zero):
               prompt 512, TF32 off, the FMA variant): prefill on the
               kernel against prefill on the plain attention (last-token
               logits within 1e-3) and the same 8 greedy tokens.
-9. segsum   — the segment sum ``sorted_segment_sum`` at ogb_products'
+10. segsum  — the segment sum ``sorted_segment_sum`` at ogb_products'
               scale (``configs/shapes.py``: 61,859,140 rows of 100 f32
               values into 2,449,029 sorted segments, 24.7 GB): sorted,
               unsorted and bf16 launches held against the plain version,
@@ -320,19 +340,20 @@ class KernelChecks:
         """Piece by piece, the survivor offset carried from piece to piece:
         the survivors of slots lo..hi-1 land from the offset before the
         piece to the offset after it (the last piece's window runs to
-        ``out_cap``, so it also covers the fill); then the true total."""
+        ``out_cap``, so it also covers the fill); then the true total.
+        ``got`` is (row, u[, state], n_surv)."""
         from repro_torch.kernels.extend_fused import ref
-        row, u, n_surv = got
+        *bufs, n_surv = got
         cand_cap = kw["cand_cap"]
         base = err = 0
         for lo, hi in self._ranges(cand_cap):
-            want_row, want_u, n = ref.extend_pruned_1p_ref(
+            *want, n = ref.extend_pruned_1p_ref(
                 *a, **{**kw, "out_cap": out_cap}, slots=(lo, hi), base=base)
             end = int(n)
             w0 = min(base, out_cap)
             w1 = min(end, out_cap) if hi < cand_cap else out_cap
-            err = max(err, max_abs_err([row[w0:w1], u[w0:w1]],
-                                       [want_row[w0:w1], want_u[w0:w1]]))
+            err = max(err, max_abs_err([b[w0:w1] for b in bufs],
+                                       [w[w0:w1] for w in want]))
             base = end
         return max(err, abs(int(n_surv) - base))
 
@@ -341,12 +362,13 @@ class KernelChecks:
         err = self._lookback_err(a, kw, got, kw["out_cap"])
         small = max(kw["out_cap"] // 2, 1)
         over = self._saved["extend_pruned_1p"](*a, **{**kw, "out_cap": small})
-        if small < int(over[2]):
+        if small < int(over[-1]):
             self.overflow_cases += 1
         err = max(err, self._lookback_err(a, kw, over, small))
         if not err:
-            # the two-pass pair on the same inputs: the same buffers
-            pair = ops.extend_pruned(*a, **kw)[:3]
+            # the two-pass pair on the same inputs: the same buffers (its
+            # tile counts dropped)
+            pair = ops.extend_pruned(*a, **kw)[:-1]
             if max_abs_err(got, pair):
                 raise AssertionError(
                     f"extend_pruned_1p (cand_cap={kw['cand_cap']}) differs "
@@ -456,13 +478,19 @@ def bytes_moved(name: str, a, kw) -> int:
     if name == "extend_candidates":
         return parents + col.shape[0] * 4 + 4 * cand_cap * 4
     bits = a[6].shape[0] * 4 if kw["conn_mode"] == "bitmap" else 0
-    reads = parents + col.shape[0] * 4 + bits
-    if name == "extend_pruned_1p":       # row/u and the total out
-        return reads + 2 * kw["out_cap"] * 4 + 4
+    # a branch set reads the parents' state and writes the survivors'; a
+    # labeled spec reads the labels
+    state, labels = kw.get("state"), kw.get("labels")
+    reads = (parents + col.shape[0] * 4 + bits
+             + (0 if state is None else state.numel() * 4)
+             + (0 if labels is None else labels.numel() * 4))
+    outs = 2 + (state is not None)       # row, u[, state] per survivor
+    if name == "extend_pruned_1p":       # the buffers and the total out
+        return reads + outs * kw["out_cap"] * 4 + 4
     tiles = -(-cand_cap // ref.BLOCK_C) * 4
     if name == "extend_count":
         return reads + tiles
-    return reads + 2 * tiles + 2 * kw["out_cap"] * 4  # bases in, row/u out
+    return reads + 2 * tiles + outs * kw["out_cap"] * 4   # bases in
 
 
 def time_kernels(kept: dict) -> dict:
@@ -596,7 +624,7 @@ def replay_without_sync(miner, want: int, label: str) -> None:
     pad = (0, ex.cap0 - m)
     src, dst = F.pad(src, pad), F.pad(dst, pad)
     n = torch.tensor(m, dtype=torch.int32, device="cuda")
-    count, ovf = sync_free(lambda: ex._run_once(src, dst, n))
+    count, _, ovf = sync_free(lambda: ex._run_once(src, dst, n))
     if (int(count), bool(ovf)) != (want, False):
         raise AssertionError(f"{label}: the sync-checked replay counted "
                              f"{int(count)} (overflow {bool(ovf)})")
@@ -832,6 +860,344 @@ def tc_fused_main(graph, want: int) -> int:
         raise AssertionError(f"tc-fused: counts {counts} (scipy {want}), "
                              f"launches {launches}, plain calls {plain}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Motif counting and compiled patterns: the state, canonical and labeled
+# variants of the pruned kernels
+
+
+# the timing rows of the branch-set + state variant (4-MC's level 3)
+MC_REPLACES = {"extend_count:branches": f"{TPU_KERNEL}:505",
+               "extend_scatter:branches": f"{TPU_KERNEL}:519",
+               "extend_pruned_1p:branches": f"{TPU_KERNEL}:322"}
+# the directed set: no first-pair symmetry for the 4-star, so the trie
+# takes both edge orientations and checks v0 < v1 on the other branches
+DIRECTED_SET = ("diamond", "4-cycle", "4-star")
+SYMMETRIC_SET = ("diamond", "4-cycle", "4-clique")
+# the [mc] main path's figures from the JAX reference backend on the host
+# CPU (Miner(...).run(collect_stats=True)), quoted beside the census
+MC_CPU_FIGURES = {
+    "3-mc rmat10": [793479, 75783],
+    "4-mc rmat10": [18023233, 43778500, 518702, 15655453, 2687323, 409588],
+    "4-mc rmat8": [579583, 1390299, 23360, 762958, 188737, 38027]}
+
+
+def _adjacency(graph):
+    """The graph's symmetric 0/1 adjacency as a scipy CSR matrix (int64)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    rp = graph.row_ptr.cpu().numpy().astype(np.int64)
+    ci = graph.col_idx.cpu().numpy().astype(np.int64)
+    n = rp.shape[0] - 1
+    return sp.csr_matrix((np.ones(ci.shape[0], dtype=np.int64), ci, rp),
+                         shape=(n, n))
+
+
+def motif_census(graph, k: int) -> list[int]:
+    """The induced k-motif census of ``graph`` (k = 3 or 4), counted on the
+    host with scipy, in the motif-enum order of ``repro_torch.core.pattern``.
+
+    k = 3: [open wedges, triangles], with wedges = sum C(d, 2) - 3T.  k = 4:
+    the non-induced counts of the six connected 4-vertex graphs, from A, A^2
+    and the triangles per edge and per vertex, turned into induced counts
+    by inclusion-exclusion (each graph holds a fixed number of copies of
+    each sparser one).
+    """
+    import numpy as np
+    import scipy.sparse as sp
+
+    a = _adjacency(graph)
+    deg = np.asarray(a.sum(axis=1)).ravel()
+    a2 = (a @ a).tocsr()
+    tri_edge = a2.multiply(a).tocsr()            # triangles on each edge
+    tri = int(tri_edge.sum()) // 6
+    if k == 3:
+        return [int((deg * (deg - 1) // 2).sum()) - 3 * tri, tri]
+    tri_v = np.asarray(tri_edge.sum(axis=1)).ravel() // 2
+    star = int((deg * (deg - 1) * (deg - 2) // 6).sum())
+    src = np.repeat(np.arange(a.shape[0]), np.diff(a.indptr))
+    dst = a.indices
+    path = int(((deg[src] - 1) * (deg[dst] - 1)).sum()) // 2 - 3 * tri
+    tailed = int((tri_v * (deg - 2)).sum())
+    off = sp.triu(a2, k=1).tocsr()                # pairs u < v
+    cycle = int((off.data * (off.data - 1) // 2).sum()) // 2
+    te = sp.triu(tri_edge, k=1).tocsr()
+    diamond = int((te.data * (te.data - 1) // 2).sum())
+    clique = 0
+    for v in range(a.shape[0]):
+        nb = a.indices[a.indptr[v]:a.indptr[v + 1]]
+        nb = nb[nb > v]
+        if nb.shape[0] >= 3:
+            s = a[nb][:, nb]
+            clique += int((s @ s).multiply(s).sum()) // 6
+    i_clique = clique
+    i_diamond = diamond - 6 * i_clique
+    i_cycle = cycle - i_diamond - 3 * i_clique
+    i_tailed = tailed - 4 * i_diamond - 12 * i_clique
+    i_path = path - 2 * i_tailed - 4 * i_cycle - 6 * i_diamond \
+        - 12 * i_clique
+    i_star = star - i_tailed - 2 * i_diamond - 4 * i_clique
+    return [i_path, i_star, i_cycle, i_tailed, i_diamond, i_clique]
+
+
+def labeled_chain_count(graph, labels=(0, 1, 2)) -> int:
+    """Induced occurrences of the labeled path a - b - c (labels
+    ``labels``, all distinct), counted with scipy: label-b centres times
+    their label-a and label-c neighbours, less the closed ones."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    a = _adjacency(graph)
+    lab = graph.labels.cpu().numpy()
+    d = [sp.diags((lab == x).astype(np.int64), dtype=np.int64)
+         for x in labels]
+    n0 = a @ (lab == labels[0]).astype(np.int64)
+    n2 = a @ (lab == labels[2]).astype(np.int64)
+    paths = int(((lab == labels[1]) * n0 * n2).sum())
+    closed = int((d[0] @ a @ d[2]).multiply(a @ d[1] @ a).sum())
+    return paths - closed
+
+
+MC_PATH_KERNELS = {"cuda": ("extend_candidates", "extend_count",
+                            "extend_scatter"),
+                   "cuda-1p": ("extend_candidates", "extend_pruned_1p")}
+
+
+def mc_checked(graph, runs, label: str, pack_max_bytes: int = 4 << 20,
+               backend: str = "cuda", chunk: int = 1 << 25,
+               keep: str | None = None) -> KernelChecks:
+    """Cold then warm ``Miner.run`` of each ``(name, app, count, p_map)``
+    of ``runs`` on ``backend``, every launch of the backend's kernels held
+    against its plain version (state buffers included), and each count and
+    p_map against the expected ones."""
+    import torch
+    from repro_torch.core import Miner
+
+    checks = KernelChecks(chunk, MC_PATH_KERNELS[backend])
+    with checks:
+        for name, app, count, p_map in runs:
+            checks.keep = name == keep
+            miner = Miner(graph, app, backend=backend,
+                          pack_max_bytes=pack_max_bytes, device=graph.device)
+            for run in ("cold", "warm"):
+                r = miner.run()
+                got = None if r.p_map is None else [int(x) for x in r.p_map]
+                if r.count != count or got != p_map:
+                    raise AssertionError(f"{label} {name} {run}: {r.count} "
+                                         f"{got} != {count} {p_map}")
+            del miner
+            torch.cuda.empty_cache()
+    checks.report(label)
+    if min(checks.launches.values()) < 1:
+        raise AssertionError(f"{label}: a kernel was never checked")
+    return checks
+
+
+def mc_main(graph, name: str, app, count: int, p_map, backend: str,
+            keep_levels: bool = False):
+    """Cold then warm ``Miner.run`` of ``app`` on ``backend``, the launches
+    counted: every kernel of the backend's path launches, no other kernel
+    and no plain version runs.  Returns the launches per kernel, per
+    variant, and the cold run's levels when ``keep_levels``."""
+    import torch
+    from repro_torch.core import Miner
+    from repro_torch.kernels.extend_fused import ops
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    miner = Miner(graph, app, backend=backend)
+    times, results = {}, {}
+    for run in ("cold", "warm"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[run] = miner.run()
+        torch.cuda.synchronize()
+        times[run] = time.perf_counter() - t0
+    launches, variants = dict(ops.LAUNCHES), dict(ops.VARIANT_LAUNCHES)
+    plain = sum(fn.calls for fn in ops.PLAIN_VERSIONS)
+    peak = torch.cuda.max_memory_allocated()
+    (ex,) = miner._executors.values()
+    got = {run: (r.count, None if r.p_map is None
+                 else [int(x) for x in r.p_map])
+           for run, r in results.items()}
+    log(f"[main] {name} {backend}: cold {got['cold']} in {times['cold']:.3f} "
+        f"s, warm {got['warm']} in {times['warm']:.3f} s, plan "
+        f"{list(ex.plan.caps)}, replans {ex.n_replans}, peak {peak} B, "
+        f"launches {launches}, variants {variants}, plain calls {plain}")
+    for run in got:
+        if got[run] != (count, p_map):
+            raise AssertionError(f"{name} {backend} {run}: {got[run]} != "
+                                 f"census {(count, p_map)}")
+    path = MC_PATH_KERNELS[backend]
+    if plain or min(launches[k] for k in path) < 1 or any(
+            n for k, n in launches.items() if k not in path):
+        raise AssertionError(f"{name} {backend}: launches {launches}, plain "
+                             f"calls {plain}")
+    levels = results["cold"].levels if keep_levels else None
+    del miner, results
+    return launches, variants, levels
+
+
+def levels_equal(a, b) -> int:
+    """Levels of two runs compared over each level's valid prefix: vid,
+    idx and state bit for bit.  Returns the levels compared."""
+    import torch
+    for i, (x, y) in enumerate(zip(a, b)):
+        n = int(x.n)
+        if n != int(y.n):
+            raise AssertionError(f"level {i}: {n} != {int(y.n)} embeddings")
+        for col in ("vid", "idx", "state"):
+            u, v = getattr(x, col), getattr(y, col)
+            if (u is None) != (v is None) or (
+                    u is not None and not torch.equal(u[:n], v[:n])):
+                raise AssertionError(f"level {i}: {col} differs")
+    return len(a)
+
+
+class ArgsKeeper:
+    """While active, keeps the arguments of the first launch of each named
+    wrapper whose parent width is ``k`` (the launch still runs as is)."""
+
+    def __init__(self, names, k: int):
+        self.names, self.k, self.kept = tuple(names), k, {}
+
+    def __enter__(self):
+        from repro_torch.kernels.extend_fused import ops
+        self._saved = {name: getattr(ops, name) for name in self.names}
+        for name, fn in self._saved.items():
+            def run(*a, _name=name, _fn=fn, **kw):
+                if kw.get("k") == self.k and _name not in self.kept:
+                    self.kept[_name] = (a, kw)
+                return _fn(*a, **kw)
+            setattr(ops, name, run)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.extend_fused import ops
+        for name, fn in self._saved.items():
+            setattr(ops, name, fn)
+
+
+def mc_phase(timing: dict, launches: dict) -> dict:
+    """The [mc] phase: checked runs, the counted main path, the timing of
+    the branch-set + state variant.  Returns the checks' largest errors by
+    kernel."""
+    import torch
+    from repro_torch.core import (Miner, Pattern, make_mc_app, pattern_app,
+                                  pattern_set_app)
+    from repro_torch.graph.generators import rmat
+
+    errs: dict = {}
+
+    def note(checks):
+        for k, v in checks.err.items():
+            errs[k] = max(errs.get(k, 0), v)
+
+    def set_app(names):
+        return pattern_set_app([Pattern.named(n) for n in names])
+
+    # every launch checked: 3-MC and 4-MC (trie, branch set + state) on
+    # RMAT-8 with and without the pack, the directed and the symmetric
+    # sets, the canonical test (4-MC's memo mode)
+    g8 = rmat(8, 16, seed=0)
+    c3, c4 = motif_census(g8, 3), motif_census(g8, 4)
+    log(f"[census] rmat(8, 16, seed=0): 3-motifs {c3}, 4-motifs {c4} (JAX "
+        f"reference on the host CPU: {MC_CPU_FIGURES['4-mc rmat8']})")
+    idx = {"diamond": 4, "4-cycle": 2, "4-star": 1, "4-clique": 5}
+    runs8 = [("3-mc", make_mc_app(3), sum(c3), c3),
+             ("4-mc", make_mc_app(4), sum(c4), c4),
+             ("4-mc memo", make_mc_app(4, "memo"), sum(c4), c4)]
+    for names in (DIRECTED_SET, SYMMETRIC_SET):
+        want = [c4[idx[n]] for n in names]
+        runs8.append(("+".join(names), set_app(names), sum(want), want))
+    for backend in ("cuda", "cuda-1p"):
+        for mode, pmb in (("bitmap", 4 << 20), ("search", 0)):
+            checks = mc_checked(g8, runs8, f"mc rmat8 {mode} {backend}",
+                                pack_max_bytes=pmb, backend=backend)
+            if mode not in checks.modes:
+                raise AssertionError(f"mc rmat8: modes {checks.modes}")
+            if backend == "cuda-1p" and checks.pair_matches < 1:
+                raise AssertionError("mc rmat8: no pair match")
+            note(checks)
+
+    # a compiled pattern (conjunction with forbidden slots) and the
+    # labeled chain (conjunction with label equations), checked
+    g10 = rmat(10, 16, seed=0)
+    c3_10, c4_10 = motif_census(g10, 3), motif_census(g10, 4)
+    log(f"[census] rmat(10, 16, seed=0): 3-motifs {c3_10} (JAX reference on "
+        f"the host CPU: {MC_CPU_FIGURES['3-mc rmat10']}), 4-motifs {c4_10} "
+        f"({MC_CPU_FIGURES['4-mc rmat10']})")
+    diamond = pattern_app(Pattern.named("diamond"))
+    g12l = rmat(12, 8, seed=0, labels=3)
+    chain = pattern_app(Pattern.from_edges([(0, 1), (1, 2)],
+                                           labels=[0, 1, 2]))
+    n_chain = labeled_chain_count(g12l)
+    log(f"[census] rmat(12, 8, seed=0, labels=3): labeled chain 0-1-2 "
+        f"{n_chain}")
+    for backend in ("cuda", "cuda-1p"):
+        note(mc_checked(g10, [("psm-diamond", diamond, c4_10[4], None)],
+                        f"mc rmat10 diamond {backend}", backend=backend))
+        note(mc_checked(g12l, [("psm-lchain", chain, n_chain, None)],
+                        f"mc rmat12 lchain {backend}", backend=backend))
+
+    # the counted main path, cold and warm on both backends, the levels of
+    # the two backends held equal; then the timing of 4-MC's level 3
+    g15 = rmat(15, 16, seed=0)
+    deg = g15.degrees().cpu().numpy().astype("int64")
+    t0 = time.perf_counter()
+    c3_15 = motif_census(g15, 3)
+    log(f"[census] rmat(15, 16, seed=0): {g15.n_vertices} vertices, "
+        f"{g15.n_edges // 2} undirected edges, level 2: "
+        f"{2 * int((deg * deg).sum())} candidates; 3-motifs {c3_15} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    mains = [("3-mc rmat15", g15, make_mc_app(3), c3_15),
+             ("4-mc rmat10", g10, make_mc_app(4), c4_10),
+             ("psm-diamond rmat10", g10, diamond, c4_10[4])]
+    branch_launches = dict.fromkeys(MC_REPLACES, 0)
+    for name, graph, app, want in mains:
+        count, p_map = (want, None) if isinstance(want, int) else (
+            sum(want), want)
+        t0 = time.perf_counter()
+        for backend in ("cuda", "cuda-1p"):
+            note(mc_checked(graph, [(name, app, count, p_map)],
+                            f"mc {name} {backend}", backend=backend))
+        log(f"[check] {name}: {time.perf_counter() - t0:.1f} s")
+        kept = {}
+        for backend in ("cuda", "cuda-1p"):
+            got, variants, levels = mc_main(graph, name, app, count, p_map,
+                                            backend, keep_levels=True)
+            for k, n in got.items():
+                launches[k] = launches.get(k, 0) + n
+            if app.needs_reduce:           # the trie: every launch is a
+                for k in MC_REPLACES:      # branch set with its state
+                    branch_launches[k] += got[k.split(":")[0]]
+            kept[backend] = levels
+        n_levels = levels_equal(kept["cuda"], kept["cuda-1p"])
+        log(f"[main] {name}: cuda and cuda-1p levels equal (vid, idx, state) "
+            f"on {n_levels} levels")
+        del kept
+        torch.cuda.empty_cache()
+    del g15
+    torch.cuda.empty_cache()
+
+    keeper = ArgsKeeper(("extend_count", "extend_scatter"), k=3)
+    with keeper:
+        Miner(g10, make_mc_app(4), backend="cuda").run()
+    with ArgsKeeper(("extend_pruned_1p",), k=3) as keeper_1p:
+        Miner(g10, make_mc_app(4), backend="cuda-1p").run()
+    keeper.kept.update(keeper_1p.kept)
+    rows = time_kernels(keeper.kept)
+    for name in MC_REPLACES:
+        timing[name] = rows[name.split(":")[0]]
+        launches[name] = branch_launches[name]
+        errs[name] = errs.get(name.split(":")[0], 0)
+    del keeper, keeper_1p, rows
+    torch.cuda.empty_cache()
+    profile_warm(g10, make_mc_app(4), "rmat10 4-mc")
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -1277,6 +1643,12 @@ def main() -> int:
     del g15
     torch.cuda.empty_cache()
 
+    # motif counting and compiled patterns: the state, canonical and
+    # labeled variants of the pruned kernels
+    t_phase = time.perf_counter()
+    mc_errs = mc_phase(timing, launches)
+    log(f"[mc] phase {time.perf_counter() - t_phase:.1f} s")
+
     # LM serving: every flash-attention launch of sets A and B checked,
     # the kernel timed on set A's layer 0, the counted sets, then f32
     t_phase = time.perf_counter()
@@ -1301,13 +1673,16 @@ def main() -> int:
     kernels = []
     errs = {**checks16.err, **checks15.err, **checks_tc.err, **checks_1p.err,
             **checks_lm.err, "sorted_segment_sum": seg_err}
+    for name, err in mc_errs.items():
+        errs[name] = max(errs.get(name, 0), err)
     for name, replaces in {**REPLACES, **EDGE_REPLACES, **LOOKBACK_REPLACES,
-                           **INTERSECT_REPLACES, **FLASH_REPLACES,
-                           **SEGSUM_REPLACES}.items():
+                           **MC_REPLACES, **INTERSECT_REPLACES,
+                           **FLASH_REPLACES, **SEGSUM_REPLACES}.items():
         t = timing[name]
+        module = wrapper_module(name.split(":")[0])
         kernels.append({
             "name": name, "route": "cuda",
-            "source": str(wrapper_module(name).SOURCE.relative_to(ROOT)),
+            "source": str(module.SOURCE.relative_to(ROOT)),
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(errs[name], t["max_abs_err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],

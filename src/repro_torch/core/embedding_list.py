@@ -6,7 +6,9 @@ each embedding) and ``idx`` (parent index in ``L_{i-1}``), allocated at a
 static capacity with a valid count ``n`` held as a 0-d device tensor, so a
 level can be produced without reading the device.  Edge-induced levels
 also store ``his`` (the vertex slot the new edge grew from) and ``eid``
-(its undirected edge id).
+(its undirected edge id).  A vertex level of an app with a kernel state
+update also stores ``state``, the i32 memo state the extend compacted with
+the level (the pattern-set trie's branch bitmap).
 """
 from __future__ import annotations
 
@@ -25,14 +27,15 @@ class EmbeddingLevel:
     n: torch.Tensor                       # int32[] valid prefix length
     his: Optional[torch.Tensor] = None    # int32[cap] source slot (edge)
     eid: Optional[torch.Tensor] = None    # int32[cap] edge uid (edge)
+    state: Optional[torch.Tensor] = None  # int32[cap] kernel memo state
 
     @property
     def capacity(self) -> int:
         return self.vid.shape[0]
 
     def nbytes(self) -> int:
-        cols = [c for c in (self.vid, self.idx, self.his, self.eid)
-                if c is not None]
+        cols = [c for c in (self.vid, self.idx, self.his, self.eid,
+                            self.state) if c is not None]
         return sum(c.numel() for c in cols) * 4 + 4
 
 

@@ -10,10 +10,12 @@ inspects every level on the host (``HostCapPolicy``) and records a
 without a host read until the end.  Every phase op resolves through the
 backend registry (:mod:`repro_torch.core.phases`).
 
-Not ported yet: edge blocks, the sampled estimator and the plan cache, the
-count reduce of vertex apps, bounded and sharded mining
-(``bounded_mine_edge``, the sharded FSM reduce), and the observability
-spans and metrics of ``repro.obs``.
+Vertex apps with ``needs_reduce`` (motif counting, pattern sets) end in
+the count reduce and return ``MineResult.p_map``, cold and warm.
+
+Not ported yet: edge blocks, the sampled estimator and the plan cache,
+bounded and sharded mining (``bounded_mine_edge``, the sharded FSM
+reduce), and the observability spans and metrics of ``repro.obs``.
 """
 from __future__ import annotations
 
@@ -52,6 +54,7 @@ class LevelStats:
 @dataclasses.dataclass
 class MineResult:
     count: int
+    p_map: Optional[np.ndarray] = None          # count support per pattern
     codes: Optional[np.ndarray] = None          # canonical codes (FSM)
     supports: Optional[np.ndarray] = None       # MNI supports (FSM)
     stats: list[LevelStats] = dataclasses.field(default_factory=list)
@@ -89,6 +92,9 @@ class _PhaseOps:
                                           cand_cap, out_cap,
                                           fuse_filter=self.fuse_filter)
 
+    def reduce(self, emb, n, st):
+        return self.backend.reduce_count(self.ctx, self.app, emb, n, st)
+
     # -- edge-induced
     def bound_e(self, v0, vid, his, n):
         return self.backend.candidate_bound_edge(self.ctx, self.app, v0, vid,
@@ -110,18 +116,19 @@ class _PhaseOps:
 
 
 class _VertexPipeline:
-    """Vertex-induced frontier: emb matrix + memo state."""
+    """Vertex-induced frontier: emb matrix + memo state, count reduce."""
 
     def __init__(self, ops: _PhaseOps, src, dst, n0):
         self.ops = ops
-        if ops.app.needs_reduce:
-            raise NotImplementedError(
-                f"app {ops.app.name!r}: the reduce phase is not ported yet")
         self.levels = init_level0_vertex(src, dst, n0)
         self.emb = materialize(self.levels)
         self.n = self.levels[0].n
-        self.state = torch.zeros(self.emb.shape[:1], dtype=torch.int32,
-                                 device=self.emb.device)
+        app = ops.app
+        self.state = (app.init_state(ops.ctx, self.emb, self.n)
+                      if app.init_state is not None
+                      else torch.zeros(self.emb.shape[:1], dtype=torch.int32,
+                                       device=self.emb.device))
+        self.p_map = None
 
     def level_range(self):
         return range(2, self.ops.app.max_size)
@@ -145,19 +152,47 @@ class _VertexPipeline:
             out_cap=out_cap)
         self.levels.append(new_level)
         self.n = new_level.n
+        # the memo state follows the tree; an app with a kernel state
+        # update gets the column the extend compacted (the trie's branch
+        # bitmap).  Only a reduce reads a memo state that follows the tree:
+        # for any other app reduce_filter renews it before it is read, so
+        # it is not gathered (at warm 4-CF's last level, 292 M rows)
+        app = self.ops.app
+        if new_level.state is not None:
+            self.state = new_level.state
+        elif app.get_pattern is None and app.state_histogram is None:
+            pass
+        elif self.state.shape[0] == 0:       # empty level-0 worklist
+            self.state = torch.zeros(new_level.idx.shape, dtype=torch.int32,
+                                     device=new_level.idx.device)
+        else:
+            self.state = self.state.index_select(0, new_level.idx)
         return n_cand, new_level.n
 
     def reduce_filter(self, level: int, policy):
-        # no reduce hooks yet; apps carry no memo state between levels
-        self.state = torch.zeros(self.emb.shape[:1], dtype=torch.int32,
-                                 device=self.emb.device)
+        app = self.ops.app
+        if app.get_pattern is not None or (app.needs_reduce
+                                           and level == app.max_size - 1):
+            self.p_map, _, self.state = self.ops.reduce(self.emb, self.n,
+                                                        self.state)
+        elif app.update_state_kernel is None:
+            # apps without a kernel state update get a fresh memo slot per
+            # level; kernel-threaded state survives between levels
+            self.state = torch.zeros(self.emb.shape[:1], dtype=torch.int32,
+                                     device=self.emb.device)
 
     def result(self, stats) -> MineResult:
-        return MineResult(count=int(self.n), stats=stats, levels=self.levels)
+        return MineResult(
+            count=int(self.n),
+            p_map=None if self.p_map is None else self.p_map.cpu().numpy(),
+            stats=stats, levels=self.levels)
 
     def bounded_result(self, policy):
-        """The replay's device results: (count, overflowed)."""
-        return self.n, policy.overflow()
+        """The replay's device results: (count, p_map, overflowed)."""
+        p_map = (self.p_map if self.p_map is not None
+                 else torch.zeros(self.ops.app.max_patterns,
+                                  dtype=torch.int32, device=self.emb.device))
+        return self.n, p_map, policy.overflow()
 
 
 def _frequent(app: MiningApp, codes: np.ndarray,
@@ -296,7 +331,9 @@ class Miner:
     through one :class:`~repro_torch.core.plan.MiningExecutor`, reading
     the device once per run.  ``device=None`` runs on the CUDA device and
     raises when there is none; pass ``device="cpu"`` for the host.
-    ``backend=None`` is the ``cuda`` backend.
+    ``backend=None`` is the app's preferred backend, and else the ``cuda``
+    backend.  A vertex app with ``needs_reduce`` (or a ``get_pattern``)
+    returns its per-pattern counts as ``MineResult.p_map``.
     """
 
     def __init__(self, graph: CSRGraph, app: MiningApp,
@@ -304,7 +341,8 @@ class Miner:
                  pack_max_bytes: int = 4 << 20, device: DeviceSpec = None):
         self.device = resolve_device(device)
         self.app = app
-        self.backend = get_backend(backend)
+        self.backend = get_backend(backend if backend is not None
+                                   else app.backend)
         graph = graph.to(self.device)
         g = orient_dag(graph) if app.use_dag else graph
         self.graph = g
@@ -375,7 +413,12 @@ class Miner:
         pad = cap0 - m
         src = torch.nn.functional.pad(src, (0, pad))
         dst = torch.nn.functional.pad(dst, (0, pad))
-        return MineResult(count=ex.execute(src, dst, m))
+        count, p_map = ex.execute(src, dst, m)
+        return MineResult(count=count,
+                          p_map=p_map if self._p_map_meaningful() else None)
+
+    def _p_map_meaningful(self) -> bool:
+        return self.app.get_pattern is not None or self.app.needs_reduce
 
     def _host_run(self, pipe, executor: MiningExecutor,
                   collect_stats: bool) -> MineResult:

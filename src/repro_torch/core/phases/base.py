@@ -11,11 +11,11 @@ operations the loop composes.  Ported so far:
   candidate_bound_edge     the same three for edge-induced levels
   inspect_edge
   extend_edge
+  reduce_count             vertex reduce: classify + count per pattern
   reduce_domain            FSM reduce: canonical codes + MNI support
   filter_levels            support-based compaction of the last level
 
-The count reduce of vertex apps and the sharded FSM reduce wait for later
-slices.
+The sharded FSM reduce waits for a later slice.
 """
 from __future__ import annotations
 
@@ -77,7 +77,8 @@ class PhaseBackend:
         """Fused extend + eager toAdd filter + stream compaction.
 
         Returns ``(level, new_emb, n_candidates)``; the survivor count is
-        ``level.n``.  Both counts come back as device tensors, so a plan
+        ``level.n``, and an app with a kernel state update gets the new
+        state column as ``level.state``.  Both counts come back as device tensors, so a plan
         replay checks overflow without an inspection pass and without a
         host read.
         """
@@ -102,6 +103,12 @@ class PhaseBackend:
         raise NotImplementedError
 
     # -- REDUCE / FILTER
+
+    def reduce_count(self, ctx: GraphCtx, app: MiningApp, emb: torch.Tensor,
+                     n_valid: torch.Tensor, state: Optional[torch.Tensor]):
+        """Vertex reduce: ``(p_map int32[max_patterns], pat int32[cap],
+        new_state)``, with no host read."""
+        raise NotImplementedError
 
     def reduce_domain(self, ctx: GraphCtx, app: MiningApp,
                       levels: list[EmbeddingLevel]):

@@ -4,7 +4,8 @@ of ``repro.core.phases.pallas``: ``cuda`` under the ``pallas-mp`` contract,
 
 * ``_vertex_candidates`` (the cold inspection pass) runs the unpruned
   enumeration kernel ``extend_candidates`` and evaluates the app's
-  predicate spec on its connectivity bitmask.
+  predicate spec on its connectivity bitmask, with the parents' state and,
+  for a labeled spec, the labels.
 * ``extend_pruned`` (every level, cold and warm) runs the two-pass pair
   ``extend_count`` / ``extend_scatter``: no state crosses thread blocks
   except the tile counts' exclusive scan between the passes, so the
@@ -12,18 +13,24 @@ of ``repro.core.phases.pallas``: ``cuda`` under the ``pallas-mp`` contract,
   ``cuda-1p`` (:class:`CudaLookbackBackend`) swaps exactly this call for
   the single-pass ``extend_pruned_1p``, whose tiles find their bases by a
   decoupled look-back across thread blocks (``decoupled-lookback``, one
-  pass, still a ``concurrent`` grid); everything else is shared.
+  pass, still a ``concurrent`` grid); everything else is shared.  The
+  kernels evaluate every spec kind: a conjunction (the clique rules, a
+  compiled pattern's level, labeled or not), the canonical test, and a
+  pattern-set trie level, whose branch bitmap they compact into the next
+  level's state column.
 * ``_edge_candidates`` (every edge level, cold inspection and extension)
   runs ``extend_edge``: the ragged expansion, CSR and edge-uid gathers, the
   canonical-edge test and the app's per-vertex eager mask in one kernel.
+* The reduces are the plain backend's PyTorch, on the device with no host
+  read (JAX computes them outside Pallas too).
 
 Connectivity is probed from the full bit-packed adjacency when the graph
 has one (``bitmap``) and by CSR binary search otherwise (``search``).
 What the kernels cannot express raises NotImplementedError instead of
-running plain PyTorch: a vertex app without a predicate spec, ``fuse_filter=
-False``, a partial or core pack, a state-updating app, an edge app with a
-general batch ``to_add`` and no per-vertex mask.  Labels are read by no
-ported predicate spec, so a labeled graph runs as the unlabeled one does.
+running plain PyTorch: a vertex app without a predicate spec, a state
+update other than a branch set's own bitmap, ``fuse_filter=False``, a
+partial or core pack, an edge app with a general batch ``to_add`` and no
+per-vertex mask.
 
 On CPU tensors the kernel wrappers run their plain versions, which is how
 the tests drive this backend without a card.
@@ -32,14 +39,17 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.api import GraphCtx, MiningApp, resolve_kernel_predicate
+from repro_torch.core.api import (GraphCtx, MiningApp,
+                                  resolve_kernel_predicate,
+                                  resolve_state_kernel, spec_state_update)
 from repro_torch.core.embedding_list import EmbeddingLevel
 from repro_torch.core.phases.reference import (ReferenceBackend,
                                                _col_idx, _pad_empty_frontier,
                                                check_cand_cap,
                                                check_supported,
                                                edge_ext_degrees,
-                                               edge_vertex_slots,
+                                               edge_vertex_slots, eval_spec,
+                                               label_table,
                                                vertex_ext_degrees)
 from repro_torch.kernels.extend_fused import ops
 
@@ -68,6 +78,18 @@ class CudaBackend(ReferenceBackend):
         mask; a general batch ``to_add`` hook it cannot run."""
         return app.to_add is None or app.to_add_vertex_mask is not None
 
+    @staticmethod
+    def _refusal(app: MiningApp, k: int) -> str | None:
+        """Why the kernels cannot run ``app``'s level of parent width
+        ``k`` (a capability tag), or None."""
+        spec = resolve_kernel_predicate(app, k)
+        if spec is None:
+            return "no-predicate-spec"
+        upd = resolve_state_kernel(app, k)
+        if upd is not None and not spec_state_update(spec, upd):
+            return "state-update"
+        return None
+
     def capabilities(self, app: MiningApp | None = None) -> dict:
         caps = super().capabilities(app)
         fused = "cuda-kernel"
@@ -75,9 +97,10 @@ class CudaBackend(ReferenceBackend):
             caps["extend_vertex"] = caps["extend_pruned"] = fused
             caps["extend_edge"] = fused
         elif app.kind == "vertex":
-            ks = range(2, max(app.max_size, 3))
-            if any(resolve_kernel_predicate(app, k) is None for k in ks):
-                fused = "unsupported:no-predicate-spec"
+            why = [self._refusal(app, k)
+                   for k in range(2, max(app.max_size, 3))]
+            if any(why):
+                fused = f"unsupported:{next(w for w in why if w)}"
             caps["extend_vertex"] = caps["extend_pruned"] = fused
             caps["extend_edge"] = "n/a"
         else:
@@ -86,15 +109,20 @@ class CudaBackend(ReferenceBackend):
                                    else "unsupported:batch-to-add")
         return caps
 
-    @staticmethod
-    def _spec(app: MiningApp, k: int):
+    @classmethod
+    def _spec(cls, app: MiningApp, k: int):
         check_supported(app)
-        spec = resolve_kernel_predicate(app, k)
-        if spec is None:
+        why = cls._refusal(app, k)
+        if why == "no-predicate-spec":
             raise NotImplementedError(
                 f"app {app.name!r} has no kernel predicate spec for k={k}; "
                 "the cuda backend runs only spec predicates")
-        return spec
+        if why == "state-update":
+            raise NotImplementedError(
+                f"app {app.name!r}: the kernels compute the state column "
+                "only as a branch set's own bitmap (BranchSetSpec.bits); "
+                "this update_state_kernel runs on torch-ref only")
+        return resolve_kernel_predicate(app, k)
 
     @staticmethod
     def _kernel_inputs(ctx: GraphCtx, app: MiningApp, emb: torch.Tensor,
@@ -107,6 +135,18 @@ class CudaBackend(ReferenceBackend):
         vlo = ctx.row_ptr[embc]
         vhi = ctx.row_ptr[embc + 1]
         return offsets, starts, vlo, vhi, counts.sum(dtype=torch.int64)
+
+    @staticmethod
+    def _state_labels(ctx: GraphCtx, spec, state, cap: int):
+        """The state and label tables the kernels read for ``spec`` (None
+        where it reads none)."""
+        st = lab = None
+        if spec.kind == "branches":
+            st = (torch.zeros(cap, dtype=torch.int32, device=ctx.device)
+                  if state is None else state.to(torch.int32).contiguous())
+        if spec.needs_labels:
+            lab = label_table(ctx)
+        return st, lab
 
     def _vertex_candidates(self, ctx: GraphCtx, app: MiningApp,
                            emb: torch.Tensor, n_valid: torch.Tensor, state,
@@ -122,9 +162,10 @@ class CudaBackend(ReferenceBackend):
             vlo, vhi, k=k, cand_cap=cand_cap, n_steps=ctx.n_steps)
         # The predicate runs over the kernel's outputs chunk by chunk, and
         # masks them in place (they are this call's own buffers): at cold
-        # 4-CF the outputs alone are 16 GiB.
+        # 4-CF the outputs alone are 16 GiB.  It sees the parents' state
+        # (``state[row]``) and labels, as the pruned kernels do.
         add = torch.empty(cand_cap, dtype=torch.bool, device=u.device)
-        st = None
+        labels = label_table(ctx) if spec.needs_labels else None
         for s in range(0, cand_cap, PREDICATE_CHUNK):
             e = min(s + PREDICATE_CHUNK, cand_cap)
             live = torch.arange(s, e, dtype=torch.int32,
@@ -133,12 +174,13 @@ class CudaBackend(ReferenceBackend):
             uu = u[s:e].masked_fill_(~live, -1)
             cb = conn[s:e]
             parent = emb[r.long()]
-            if st is None or st.shape[0] != e - s:
-                st = torch.zeros(e - s, dtype=torch.int32, device=u.device)
-            add[s:e] = spec(tuple(parent[:, j] for j in range(k)), uu,
-                            src_slot[s:e], st,
-                            tuple(((cb >> j) & 1).bool() & live
-                                  for j in range(k))) & live
+            st = (torch.zeros(e - s, dtype=torch.int32, device=u.device)
+                  if state is None else state[r.long()])
+            add[s:e] = eval_spec(
+                spec, labels, tuple(parent[:, j] for j in range(k)), uu,
+                src_slot[s:e], st,
+                tuple(((cb >> j) & 1).bool() & live
+                      for j in range(k))) & live
         return row, u, src_slot, add, total
 
     def extend_pruned(self, ctx: GraphCtx, app: MiningApp, emb: torch.Tensor,
@@ -163,16 +205,22 @@ class CudaBackend(ReferenceBackend):
         else:
             raise NotImplementedError("mixed connectivity (partial or core "
                                       "pack) is not ported yet")
-        row, u, n_surv = getattr(ops, self._pruned_kernel)(
+        st, lab = self._state_labels(ctx, spec, state, cap)
+        out = getattr(ops, self._pruned_kernel)(
             _col_idx(ctx), offsets, starts, emb.reshape(-1).contiguous(),
             vlo, vhi, bits, k=k, cand_cap=cand_cap, out_cap=out_cap,
             n_steps=ctx.n_steps, n_vertices=ctx.n_vertices, n_words=n_words,
-            spec=spec, conn_mode=conn_mode)[:3]
+            spec=spec, conn_mode=conn_mode, state=st, labels=lab)
+        row, u = out[0], out[1]
+        n_surv = out[3] if spec.writes_state else out[2]
+        # a branch set's bitmap is the new state where the app updates it
+        st_out = (out[2] if spec.writes_state
+                  and resolve_state_kernel(app, k) is not None else None)
         live = torch.arange(out_cap, dtype=torch.int32,
                             device=emb.device) < n_surv
         vid = torch.where(live, u, -1)
         idx = torch.where(live, row.clamp(0, cap - 1), 0)
-        level = EmbeddingLevel(vid=vid, idx=idx, n=n_surv)
+        level = EmbeddingLevel(vid=vid, idx=idx, n=n_surv, state=st_out)
         new_emb = torch.cat([emb[idx.long()], vid[:, None]], dim=1)
         return level, new_emb, total
 

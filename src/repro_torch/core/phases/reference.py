@@ -5,16 +5,17 @@ EXTEND is the inspection-execution candidate generation of paper §5.3:
 count candidates per (parent, slot) masked by ``toExtend``, expand each
 output slot to its (parent, rank), gather the candidate from the CSR,
 evaluate ``toAdd`` before writing, and compact the survivors by a prefix
-sum.  REDUCE is the domain (MNI) support of FSM, and FILTER the
-support-based compaction of Alg. 2.  The module-level functions are the
+sum.  REDUCE is the count reduce of vertex apps (a state histogram, the
+app's ``get_pattern`` or the canonical-code table) and the domain (MNI)
+support of FSM, and FILTER the support-based compaction of Alg. 2.  The module-level functions are the
 single source of truth; :class:`ReferenceBackend` packages them, and the
 CUDA backend overrides only the enumerations
 (:meth:`ReferenceBackend._vertex_candidates`,
 :meth:`ReferenceBackend._edge_candidates`) and ``extend_pruned``.
 
-The domain reduce keeps static shapes and reads nothing from the device
-(no ``torch.unique``, ``nonzero`` or boolean indexing, which wait for the
-host on CUDA), so a warm FSM replay runs without a sync.
+Both reduces keep static shapes and read nothing from the device (no
+``torch.unique``, ``nonzero`` or boolean indexing, which wait for the host
+on CUDA), so a warm replay runs without a sync.
 
 Unlike XLA, torch raises on an out-of-range gather (and trips a
 device-side assert on the card), so every gather the JAX code leaves to
@@ -31,7 +32,8 @@ from repro_torch.core import pattern as P
 from repro_torch.core.api import (GraphCtx, MiningApp,
                                   is_auto_canonical_edge,
                                   is_auto_canonical_vertex,
-                                  resolve_kernel_predicate)
+                                  resolve_kernel_predicate,
+                                  resolve_state_kernel)
 from repro_torch.core.embedding_list import EmbeddingLevel, materialize_edges
 from repro_torch.core.phases.base import PhaseBackend
 from repro_torch.sparse.ops import compact_mask, expand_ragged
@@ -39,17 +41,13 @@ from repro_torch.sparse.ops import compact_mask, expand_ragged
 # Candidate slots are int32 and capacities are powers of two, so one level
 # can plan at most 2^30 candidate slots.
 MAX_CAND_CAP = 1 << 30
-INT_MAX = (1 << 31) - 1
+INT_MAX = P.INT_MAX
 
 
 def check_supported(app: MiningApp) -> None:
-    """Raise for what this slice of the port does not cover."""
+    """Raise for an app kind the port does not know."""
     if app.kind not in ("vertex", "edge"):
         raise ValueError(f"app {app.name!r}: unknown kind {app.kind!r}")
-    if app.update_state_kernel is not None:
-        raise NotImplementedError(
-            f"app {app.name!r}: the state column (update_state_kernel) is "
-            "not ported yet")
 
 
 def check_cand_cap(cand_cap: int) -> None:
@@ -68,10 +66,14 @@ def vertex_ext_degrees(ctx: GraphCtx, app: MiningApp, emb: torch.Tensor,
                        n_valid: torch.Tensor,
                        state: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Step 1: per-(parent, slot) candidate counts, masked by ``toExtend``
-    (int32 [cap, k])."""
+    (int32 [cap, k]).  With a ``to_extend_state`` hook and a state column
+    the mask is per embedding (the trie's dead branches enumerate
+    nothing)."""
     cap, k = emb.shape
     valid = torch.arange(cap, dtype=torch.int32, device=emb.device) < n_valid
-    if app.to_extend is not None:
+    if app.to_extend_state is not None and state is not None:
+        ext = app.to_extend_state(ctx, emb, state)
+    elif app.to_extend is not None:
         ext = app.to_extend(ctx, emb)
     else:
         ext = torch.ones((cap, k), dtype=torch.bool, device=emb.device)
@@ -95,13 +97,36 @@ def vertex_add_mask(ctx: GraphCtx, app: MiningApp, emb: torch.Tensor,
     return add & live
 
 
-def apply_kernel_predicate(ctx: GraphCtx, pred, emb: torch.Tensor,
-                           row_c: torch.Tensor, u: torch.Tensor,
-                           src_slot: torch.Tensor,
-                           state: Optional[torch.Tensor],
-                           live: torch.Tensor) -> torch.Tensor:
-    """Evaluate the kernel predicate on flat batches, probing connectivity
-    here (one bit test against the full pack, else a CSR search)."""
+def label_table(ctx: GraphCtx) -> torch.Tensor:
+    """The vertex labels a labeled predicate gathers: the graph's, or one
+    zero label when it has none (as JAX gathers them)."""
+    if ctx.labels is not None:
+        return ctx.labels.to(torch.int32).contiguous()
+    return torch.zeros(1, dtype=torch.int32, device=ctx.device)
+
+
+def gather_labels(labels: torch.Tensor, emb_cols, u: torch.Tensor):
+    """``(lab_cols, lab_u)`` of a labeled predicate, each gather clipped to
+    the table, as JAX clips it."""
+    nv = labels.shape[0]
+    lab_cols = tuple(labels[c.clamp(0, nv - 1).long()] for c in emb_cols)
+    return lab_cols, labels[u.clamp(0, nv - 1).long()]
+
+
+def eval_spec(pred, labels: Optional[torch.Tensor], emb_cols, u, src_slot,
+              st, conn) -> torch.Tensor:
+    """Evaluate a kernel predicate, gathering labels when it reads them."""
+    if getattr(pred, "needs_labels", False):
+        lab_cols, lab_u = gather_labels(labels, emb_cols, u)
+        return pred(emb_cols, u, src_slot, st, conn, lab_cols, lab_u)
+    return pred(emb_cols, u, src_slot, st, conn)
+
+
+def _kernel_operands(ctx: GraphCtx, emb: torch.Tensor, row_c: torch.Tensor,
+                     u: torch.Tensor, state: Optional[torch.Tensor]):
+    """The elementwise operands of a kernel predicate or state update on
+    flat batches: ``(emb_cols, st, conn)``, connectivity probed here (one
+    bit test against the full pack, else a CSR search)."""
     k = emb.shape[1]
     rows = row_c.long()
     parent = emb[rows]
@@ -109,7 +134,30 @@ def apply_kernel_predicate(ctx: GraphCtx, pred, emb: torch.Tensor,
     conn = tuple(ctx.is_connected(parent[:, j], u) for j in range(k))
     st = (torch.zeros(u.shape, dtype=torch.int32, device=u.device)
           if state is None else state[rows])
-    return pred(emb_cols, u, src_slot, st, conn) & live
+    return emb_cols, st, conn
+
+
+def apply_kernel_predicate(ctx: GraphCtx, pred, emb: torch.Tensor,
+                           row_c: torch.Tensor, u: torch.Tensor,
+                           src_slot: torch.Tensor,
+                           state: Optional[torch.Tensor],
+                           live: torch.Tensor) -> torch.Tensor:
+    """Evaluate the kernel predicate on flat batches, with the parents'
+    state and, for a labeled predicate, the labels."""
+    emb_cols, st, conn = _kernel_operands(ctx, emb, row_c, u, state)
+    return eval_spec(pred, label_table(ctx), emb_cols, u, src_slot, st,
+                     conn) & live
+
+
+def apply_state_kernel(ctx: GraphCtx, upd, emb: torch.Tensor,
+                       row_c: torch.Tensor, u: torch.Tensor,
+                       src_slot: torch.Tensor,
+                       state: Optional[torch.Tensor]) -> torch.Tensor:
+    """Evaluate an ``update_state_kernel`` on flat batches (the operands of
+    :func:`apply_kernel_predicate`); the compaction drops the values of
+    candidates that do not survive."""
+    emb_cols, st, conn = _kernel_operands(ctx, emb, row_c, u, state)
+    return upd(emb_cols, u, src_slot, st, conn).to(torch.int32)
 
 
 def _pad_empty_frontier(emb: torch.Tensor, state: Optional[torch.Tensor]):
@@ -185,8 +233,12 @@ def candidate_bound_vertex(ctx: GraphCtx, app: MiningApp, emb: torch.Tensor,
 
 def finish_extend_vertex(emb: torch.Tensor, row: torch.Tensor,
                          u: torch.Tensor, add: torch.Tensor, out_cap: int,
-                         fuse_filter: bool = True):
-    """Step 3's write: compact survivors into the next SoA level."""
+                         fuse_filter: bool = True,
+                         new_state: Optional[torch.Tensor] = None):
+    """Step 3's write: compact survivors into the next SoA level.
+    ``new_state`` (int32[cand_cap], from ``update_state_kernel``) is
+    compacted by the same gather into the level's ``state`` column, 0 past
+    the survivors."""
     if not fuse_filter:
         # materialise the full candidate list, then filter: the ablation
         # of paper Fig. 12d (what Arabesque and RStream do)
@@ -198,7 +250,9 @@ def finish_extend_vertex(emb: torch.Tensor, row: torch.Tensor,
                         device=emb.device) < n_new
     vid = torch.where(live, u[g], -1).to(torch.int32)
     idx = torch.where(live, row[g], 0).to(torch.int32)
-    level = EmbeddingLevel(vid=vid, idx=idx, n=n_new)
+    st = (None if new_state is None
+          else torch.where(live, new_state[g], 0).to(torch.int32))
+    level = EmbeddingLevel(vid=vid, idx=idx, n=n_new, state=st)
     new_emb = torch.cat([emb[idx.long()], vid[:, None]], dim=1)
     return level, new_emb
 
@@ -302,6 +356,53 @@ def finish_extend_edge(row, s, u, new_eid, add, out_cap: int
 
 
 # ---------------------------------------------------------------------------
+# REDUCE: vertex-induced (count support)
+
+
+def build_adjacency(ctx: GraphCtx, emb: torch.Tensor) -> torch.Tensor:
+    """Pairwise connectivity of embedding vertices: bool[N, k, k]."""
+    n, k = emb.shape
+    adj = torch.zeros((n, k, k), dtype=torch.bool, device=emb.device)
+    for i in range(k):
+        for j in range(i + 1, k):
+            c = ctx.is_connected(emb[:, i], emb[:, j])
+            adj[:, i, j] = c
+            adj[:, j, i] = c
+    return adj
+
+
+def reduce_count(ctx: GraphCtx, app: MiningApp, emb: torch.Tensor,
+                 n_valid: torch.Tensor, state: Optional[torch.Tensor]):
+    """Classify + count: ``(p_map int32[max_patterns], pat int32[cap],
+    new_state)``, equal to JAX's ``reduce_count``.
+
+    Three branches: the app's ``state_histogram`` of the state column (the
+    pattern-set trie's leaf bits), its ``get_pattern`` classifier, or the
+    canonical code of each embedding's induced subgraph, numbered by a
+    fixed-size unique whose ``INT_MAX`` padding bucket (the invalid rows)
+    sorts last and is dropped.
+    """
+    cap = emb.shape[0]
+    dev = emb.device
+    valid = torch.arange(cap, dtype=torch.int32, device=dev) < n_valid
+    if app.state_histogram is not None:
+        p_map = app.state_histogram(state, valid).to(torch.int32)
+        return p_map, torch.zeros(cap, dtype=torch.int32, device=dev), state
+    if app.get_pattern is not None:
+        pat, new_state = app.get_pattern(ctx, emb, state, valid)
+    else:
+        adj = build_adjacency(ctx, emb)
+        codes = P.canonical_code(adj, None, emb.shape[1])
+        codes = torch.where(valid, codes, INT_MAX)
+        _, pat = P.unique_fixed(codes, app.max_patterns + 1)
+        new_state = pat
+    pat = pat.clamp(0, app.max_patterns)
+    p_map = torch.zeros(app.max_patterns + 1, dtype=torch.int32, device=dev)
+    p_map.index_add_(0, pat.long(), valid.to(torch.int32))
+    return p_map[:app.max_patterns], pat.to(torch.int32), new_state
+
+
+# ---------------------------------------------------------------------------
 # REDUCE: edge-induced — embedding -> labeled local graph
 
 
@@ -391,24 +492,6 @@ def _canonical_edge_codes(ctx: GraphCtx, app: MiningApp,
     return vert_vid, n_verts, valid, perms, codes_all, canon
 
 
-def _unique_fixed(codes: torch.Tensor, size: int):
-    """``jnp.unique(codes, size=size, fill_value=INT_MAX,
-    return_inverse=True)`` with static shapes and no host read: the
-    ``size`` smallest distinct codes (padded with INT_MAX), and each code's
-    rank among all distinct codes (which is ``size`` or more for a code
-    past a truncated table)."""
-    dev = codes.device
-    sorted_c, order = torch.sort(codes)
-    first = torch.ones(sorted_c.shape, dtype=torch.bool, device=dev)
-    first[1:] = sorted_c[1:] != sorted_c[:-1]
-    rank = torch.cumsum(first.to(torch.int32), 0, dtype=torch.int32) - 1
-    inverse = torch.empty_like(rank).scatter_(0, order, rank)
-    uniq = torch.full((size + 1,), INT_MAX, dtype=torch.int32, device=dev)
-    dest = torch.where(first & (rank < size), rank, size).long()
-    uniq.index_put_((dest,), sorted_c)     # slot ``size`` takes the rest
-    return uniq[:size], inverse
-
-
 def _domain_contributions(n_verts, ok, perm, pat, V: int, park: int
                           ) -> torch.Tensor:
     """Buckets int64[cap, V] of one permutation's MNI contributions: local
@@ -442,7 +525,7 @@ def reduce_domain(ctx: GraphCtx, app: MiningApp,
     n_eff = ctx.n_labels + 1
     Pn = app.max_patterns
     n = max(ctx.n_vertices, 1)
-    uniq, pat = _unique_fixed(canon, Pn)
+    uniq, pat = P.unique_fixed(canon, Pn)
     pat_valid = uniq != INT_MAX
     park = Pn * V
     member = torch.zeros((park + 1) * n, dtype=torch.uint8,
@@ -530,10 +613,15 @@ class ReferenceBackend(PhaseBackend):
                       out_cap, fuse_filter=True):
         check_supported(app)
         emb, state = _pad_empty_frontier(emb, state)
-        row, u, _, add, total = self._vertex_candidates(
+        row, u, src_slot, add, total = self._vertex_candidates(
             ctx, app, emb, n_valid, state, cand_cap)
+        upd = resolve_state_kernel(app, emb.shape[1])
+        new_st = (None if upd is None
+                  else apply_state_kernel(ctx, upd, emb, row, u, src_slot,
+                                          state))
         level, new_emb = finish_extend_vertex(emb, row, u, add, out_cap,
-                                              fuse_filter)
+                                              fuse_filter,
+                                              new_state=new_st)
         return level, new_emb, total
 
     # -- edge EXTEND (the enumeration is the backend-swappable step, like
@@ -561,6 +649,9 @@ class ReferenceBackend(PhaseBackend):
         return finish_extend_edge(row, s, u, new_eid, add, out_cap), total
 
     # -- REDUCE / FILTER
+    def reduce_count(self, ctx, app, emb, n_valid, state):
+        return reduce_count(ctx, app, emb, n_valid, state)
+
     def reduce_domain(self, ctx, app, levels):
         return reduce_domain(ctx, app, levels)
 

@@ -299,13 +299,14 @@ class MiningExecutor:
         raise RuntimeError(f"mining plan {self.signature} still overflows "
                            f"after {self.max_retries + 1} attempts")
 
-    def execute(self, src, dst, n_valid: int) -> int:
-        """Replay the plan on a vertex-induced worklist; returns the
-        count."""
+    def execute(self, src, dst, n_valid: int) -> tuple[int, np.ndarray]:
+        """Replay the plan on a vertex-induced worklist; returns ``(count,
+        p_map)``, the per-pattern counts int32[max_patterns] (zeros for an
+        app without a reduce), read with the count in the one transfer."""
         assert self.kind == "vertex"
         n = torch.tensor(n_valid, dtype=torch.int32, device=self.miner.device)
-        (count,) = self._run_with_retry(src, dst, n)
-        return count
+        flat = self._run_with_retry(src, dst, n)
+        return flat[0], np.asarray(flat[1:], dtype=np.int32)
 
     def execute_edge(self, src, dst, eid, n_valid: int
                      ) -> tuple[np.ndarray, np.ndarray]:

@@ -46,6 +46,32 @@
 // depths, dead slots), so a CTA takes four 512-slot sub-tiles: a quarter
 // of the look-backs, and less spread in the time per tile.
 //
+// The pruned kernels evaluate four kinds of predicate (the spec kinds of
+// repro_torch/core/api.py), each a template instantiation of
+// enumerate_slot, so the clique rules compile to the code they always had:
+//   clique       a conjunction of slot masks (required, distinct, greater,
+//                src_slot_eq), probing only while the conjunction holds;
+//   conjunction  the same with forbidden slots (induced matching) and,
+//                when labeled, the candidate's and first extension's label
+//                equations (one gather each, clipped to the table);
+//   canonical    the automorphism-canonical test, the connectivity bit of
+//                every slot in slot order (is_auto_canonical_kernel);
+//   branches     a pattern-set trie level: up to 32 branches, each with a
+//                parent bit of the parent's i32 state, an anchor slot,
+//                required/forbidden/distinct/smaller masks and first_pair.
+//                The lane first keeps the branches whose parent bit and
+//                anchor match; with none it probes nothing.  Otherwise it
+//                probes each slot that a kept branch names once, builds
+//                its connectivity, equality and order masks once, and
+//                tests each kept branch against them with a few integer
+//                ops.  The bitmap is the keep mask (!= 0) and the new
+//                state, which extend_scatter and extend_pruned_1p compact
+//                through the same tile_rank as row and u (8 B more per
+//                survivor: the parent's state read, the new state written).
+// The branch table travels by value in the kernel parameters (about 0.9
+// KB of the 4 KB); every lane reads the same entry, so the reads are
+// constant-bank broadcasts.
+//
 // extend_edge writes five int32 outputs per candidate slot (20 B), which is
 // its compulsory traffic and its bound: the parent tables are 16 B per slot
 // parent, and the row's E edge uids and their endpoints are read per slot
@@ -62,7 +88,11 @@ constexpr int kWarps = kTile / 32;
 constexpr int kItems1p = 4;           // 512-slot sub-tiles per CTA, 1p
 constexpr int kCandThreads = 256;     // threads per CTA in extend_candidates
 
-// The clique predicate, as PredicateSpec in repro_torch/core/api.py.
+// The kinds of spec (KINDS in repro_torch/core/api.py).
+enum Kind { kClique = 0, kConjunction = 1, kCanonical = 2, kBranches = 3 };
+constexpr int kMaxBranches = 32;
+
+// The clique predicate, PredicateSpec with no forbidden slot and no label.
 struct Spec {
   int required;     // conn bit j must be set
   int distinct;     // u != emb_j
@@ -122,37 +152,184 @@ struct Cand {
   int row;
   int u;
   bool keep;
+  int bits;         // a branch set's bitmap (the new state); 0 otherwise
 };
 
-// K1, the shared stage of both passes (port of _tile_enumerate): parent
-// search, CSR gather, k-way connectivity and the predicate, for one live
-// slot.  Both passes call this one function, so pass 2 replays pass 1.
+// The predicates.  Each eval() gets the lane's parent row, source slot and
+// candidate, and conn(pj, ev): is u adjacent to the parent slot at flat
+// index pj, whose vertex is ev (a bitmap bit or a CSR search, false for a
+// dead slot).  Every
+// predicate probes only once u >= 0 is established (the plain version's
+// connectivity bits also require it): the clique and conjunction test it
+// first, the canonical test's u > emb_0 >= -1 implies it, and a branch
+// set keeps no branch for u < 0.
+
+struct CliquePred {
+  static constexpr bool kWritesState = false;
+  Spec spec;
+
+  template <class F>
+  __device__ __forceinline__ Cand eval(const Tables& t, int row, int src_slot,
+                                       int u, F conn) const {
+    bool ok = u >= 0;
+    if (spec.src_slot_eq >= 0) ok = ok && src_slot == spec.src_slot_eq;
+    int base = row * t.k;
+    for (int j = 0; j < t.k && ok; ++j) {
+      int pj = clampi(base + j, 0, t.n_parents - 1);
+      int ev = t.emb[pj];
+      if ((spec.distinct >> j) & 1) ok = ok && u != ev;
+      if ((spec.greater >> j) & 1) ok = ok && u > ev;
+      if (ok && ((spec.required >> j) & 1)) ok = conn(pj, ev);
+    }
+    return Cand{row, u, ok, 0};
+  }
+};
+
+// A conjunction with forbidden slots and, if Labeled, label equations: the
+// candidate's label is `label` (when >= 0), and on the first extension
+// (lab0 >= 0) the parent's slots 0 and 1 carry lab0 and lab1.
+template <bool Labeled>
+struct ConjPred {
+  static constexpr bool kWritesState = false;
+  Spec spec;
+  int forbidden;
+  int label, lab0, lab1;
+  const int* labels;
+  int n_labels;
+
+  __device__ __forceinline__ int lab(int v) const {
+    return __ldg(labels + clampi(v, 0, n_labels - 1));
+  }
+
+  template <class F>
+  __device__ __forceinline__ Cand eval(const Tables& t, int row, int src_slot,
+                                       int u, F conn) const {
+    bool ok = u >= 0;
+    int base = row * t.k;
+    if (Labeled) {
+      if (label >= 0) ok = ok && lab(u) == label;
+      if (ok && lab0 >= 0)
+        ok = lab(t.emb[clampi(base, 0, t.n_parents - 1)]) == lab0
+             && lab(t.emb[clampi(base + 1, 0, t.n_parents - 1)]) == lab1;
+    }
+    if (spec.src_slot_eq >= 0) ok = ok && src_slot == spec.src_slot_eq;
+    for (int j = 0; j < t.k && ok; ++j) {
+      int pj = clampi(base + j, 0, t.n_parents - 1);
+      int ev = t.emb[pj];
+      if ((spec.distinct >> j) & 1) ok = ok && u != ev;
+      if ((spec.greater >> j) & 1) ok = ok && u > ev;
+      bool rq = (spec.required >> j) & 1, fb = (forbidden >> j) & 1;
+      if (ok && (rq || fb)) {
+        bool c = conn(pj, ev);
+        ok = (!rq || c) && (!fb || !c);
+      }
+    }
+    return Cand{row, u, ok, 0};
+  }
+};
+
+// is_auto_canonical_kernel: u > emb_0; for each slot in order, reject when
+// an earlier slot was adjacent and u < emb_j, when u == emb_j, or when u
+// is adjacent to a slot before its source slot; accept iff some slot is
+// adjacent.  Once a term fails the answer is false, so probing stops.
+struct CanonPred {
+  static constexpr bool kWritesState = false;
+
+  template <class F>
+  __device__ __forceinline__ Cand eval(const Tables& t, int row, int src_slot,
+                                       int u, F conn) const {
+    int base = row * t.k;
+    bool ok = u > t.emb[clampi(base, 0, t.n_parents - 1)];
+    bool found = false;
+    for (int j = 0; j < t.k && ok; ++j) {
+      int pj = clampi(base + j, 0, t.n_parents - 1);
+      int ev = t.emb[pj];
+      ok = !(found && u < ev) && u != ev;
+      if (!ok) break;
+      bool adj = conn(pj, ev);
+      found = found || adj;
+      ok = !(adj && j < src_slot);
+    }
+    return Cand{row, u, ok && found, 0};
+  }
+};
+
+struct Branch {
+  int parent, anchor, required, forbidden, distinct, smaller, first_pair;
+};
+
+struct BranchPred {
+  static constexpr bool kWritesState = true;
+  int n;
+  Branch b[kMaxBranches];
+  const int* state;     // the parents' state, [n_rows]
+  int n_rows;
+
+  template <class F>
+  __device__ __forceinline__ Cand eval(const Tables& t, int row, int src_slot,
+                                       int u, F conn) const {
+    int st = __ldg(state + clampi(row, 0, n_rows - 1));
+    unsigned live = 0;
+    int need = 0;                       // slots a live branch probes
+    // The branch loops are unrolled to constant indices, so each read of
+    // the table is a constant-bank load (a dynamic index would copy the
+    // table to local memory).
+    if (u >= 0) {
+#pragma unroll
+      for (int i = 0; i < kMaxBranches; ++i) {
+        if (i < n && ((st >> b[i].parent) & 1) && src_slot == b[i].anchor) {
+          live |= 1u << i;
+          need |= b[i].required | b[i].forbidden;
+        }
+      }
+    }
+    if (!live) return Cand{row, u, false, 0};
+    int base = row * t.k;
+    int cm = 0, eq = 0, gt = 0, ev0 = 0, ev1 = 0;
+    for (int j = 0; j < t.k; ++j) {
+      int pj = clampi(base + j, 0, t.n_parents - 1);
+      int ev = t.emb[pj];
+      if (j == 0) ev0 = ev;
+      if (j == 1) ev1 = ev;
+      eq |= int(u == ev) << j;
+      gt |= int(u > ev) << j;
+      if (((need >> j) & 1) && conn(pj, ev)) cm |= 1 << j;
+    }
+    unsigned out = 0;
+#pragma unroll
+    for (int i = 0; i < kMaxBranches; ++i) {
+      bool ok = ((live >> i) & 1)
+                && (cm & b[i].required) == b[i].required
+                && (cm & b[i].forbidden) == 0 && (eq & b[i].distinct) == 0
+                && (gt & b[i].smaller) == b[i].smaller
+                && (!b[i].first_pair || ev0 < ev1);
+      out |= unsigned(ok) << i;
+    }
+    return Cand{row, u, out != 0, int(out)};
+  }
+};
+
+// K1, the shared stage of all pruned kernels (port of _tile_enumerate):
+// parent search, CSR gather, then the predicate with its connectivity
+// probes, for one live slot.  Every pass calls this one function, so pass
+// 2 replays pass 1.
+template <class P>
 __device__ __forceinline__ Cand enumerate_slot(const Tables& t, int slot,
                                                const uint32_t* __restrict__ bits,
                                                int use_bitmap, int n_words,
-                                               int n_vertices, Spec spec) {
+                                               int n_vertices, const P& pred) {
   int p = parent_of(t.offsets, t.n_parents, slot);
   int row = p / t.k;
   int src_slot = p - row * t.k;
   int ptr = clampi(t.vlo[p] + (slot - t.starts[p]), 0, t.m - 1);
   int u = __ldg(t.col + ptr);
-  bool ok = u >= 0;
-  if (spec.src_slot_eq >= 0) ok = ok && src_slot == spec.src_slot_eq;
-  int base = row * t.k;
-  for (int j = 0; j < t.k && ok; ++j) {
-    int pj = clampi(base + j, 0, t.n_parents - 1);
-    int ev = t.emb[pj];
-    if ((spec.distinct >> j) & 1) ok = ok && u != ev;
-    if ((spec.greater >> j) & 1) ok = ok && u > ev;
-    if (ok && ((spec.required >> j) & 1)) {
-      bool found = ev >= 0 && (use_bitmap
-          ? bitmap_contains(bits, n_words, n_vertices,
-                            clampi(ev, 0, n_vertices - 1), u)
-          : csr_contains(t.col, t.vlo[pj], t.vhi[pj], u));
-      ok = found;
-    }
-  }
-  return Cand{row, u, ok};
+  auto conn = [&](int pj, int ev) -> bool {
+    return ev >= 0 && (use_bitmap
+        ? bitmap_contains(bits, n_words, n_vertices,
+                          clampi(ev, 0, n_vertices - 1), u)
+        : csr_contains(t.col, t.vlo[pj], t.vhi[pj], u));
+  };
+  return pred.eval(t, row, src_slot, u, conn);
 }
 
 __global__ void __launch_bounds__(kCandThreads)
@@ -178,16 +355,17 @@ extend_candidates_kernel(Tables t, int cand_cap, int* __restrict__ row_out,
   conn_out[slot] = conn;
 }
 
+template <class P>
 __global__ void __launch_bounds__(kTile)
 extend_count_kernel(Tables t, int cand_cap, const uint32_t* __restrict__ bits,
-                    int use_bitmap, int n_words, int n_vertices, Spec spec,
+                    int use_bitmap, int n_words, int n_vertices, P pred,
                     int* __restrict__ counts) {
   int slot = blockIdx.x * kTile + threadIdx.x;
   int total = t.offsets[t.n_parents - 1];
   bool keep = false;
   if (slot < cand_cap && slot < total)
     keep = enumerate_slot(t, slot, bits, use_bitmap, n_words, n_vertices,
-                          spec).keep;
+                          pred).keep;
   int cnt = __syncthreads_count(keep);
   if (threadIdx.x == 0) counts[blockIdx.x] = cnt;
 }
@@ -219,17 +397,19 @@ __device__ __forceinline__ int tile_rank(bool keep, int* warp_base,
   return warp_base[warp] + __popc(ballot & ((1u << lane) - 1u));
 }
 
+template <class P>
 __global__ void __launch_bounds__(kTile)
 extend_scatter_kernel(Tables t, int cand_cap, const uint32_t* __restrict__ bits,
-                      int use_bitmap, int n_words, int n_vertices, Spec spec,
+                      int use_bitmap, int n_words, int n_vertices, P pred,
                       const int* __restrict__ bases, int out_cap,
-                      int* __restrict__ row_out, int* __restrict__ u_out) {
+                      int* __restrict__ row_out, int* __restrict__ u_out,
+                      int* __restrict__ state_out) {
   __shared__ int warp_base[kWarps + 1];
   int slot = blockIdx.x * kTile + threadIdx.x;
   int total = t.offsets[t.n_parents - 1];
-  Cand c{0, -1, false};
+  Cand c{0, -1, false, 0};
   if (slot < cand_cap && slot < total)
-    c = enumerate_slot(t, slot, bits, use_bitmap, n_words, n_vertices, spec);
+    c = enumerate_slot(t, slot, bits, use_bitmap, n_words, n_vertices, pred);
   int count;
   int r = tile_rank(c.keep, warp_base, &count);
   if (c.keep) {
@@ -237,6 +417,7 @@ extend_scatter_kernel(Tables t, int cand_cap, const uint32_t* __restrict__ bits,
     if (dest < out_cap) {
       row_out[dest] = c.row;
       u_out[dest] = c.u;
+      if constexpr (P::kWritesState) state_out[dest] = c.bits;
     }
   }
 }
@@ -307,12 +488,14 @@ __device__ int lookback(unsigned long long* status, int tile, int count) {
 // total (which may exceed out_cap: writes at dest >= out_cap are dropped,
 // as in the pair).  `status` (n_tiles words) and `ticket` are zero at
 // launch.
+template <class P>
 __global__ void __launch_bounds__(kTile)
 extend_pruned_1p_kernel(Tables t, int cand_cap,
                         const uint32_t* __restrict__ bits, int use_bitmap,
-                        int n_words, int n_vertices, Spec spec, int out_cap,
+                        int n_words, int n_vertices, P pred, int out_cap,
                         unsigned long long* status, unsigned int* ticket,
                         int* __restrict__ row_out, int* __restrict__ u_out,
+                        int* __restrict__ state_out,
                         int* __restrict__ n_surv) {
   __shared__ int warp_base[2][kWarps + 1];
   __shared__ int tile_s, base_s;
@@ -326,10 +509,10 @@ extend_pruned_1p_kernel(Tables t, int cand_cap,
 #pragma unroll
   for (int j = 0; j < kItems1p; ++j) {
     int slot = (tile * kItems1p + j) * kTile + threadIdx.x;
-    c[j] = Cand{0, -1, false};
+    c[j] = Cand{0, -1, false, 0};
     if (slot < cand_cap && slot < total)
       c[j] = enumerate_slot(t, slot, bits, use_bitmap, n_words, n_vertices,
-                            spec);
+                            pred);
     int n;
     rank[j] = count + tile_rank(c[j].keep, warp_base[j & 1], &n);
     count += n;
@@ -349,6 +532,7 @@ extend_pruned_1p_kernel(Tables t, int cand_cap,
       if (dest < out_cap) {
         row_out[dest] = c[j].row;
         u_out[dest] = c[j].u;
+        if constexpr (P::kWritesState) state_out[dest] = c[j].bits;
       }
     }
   }
@@ -439,6 +623,56 @@ Tables make_tables(const int* offsets, const int* starts, const int* emb,
   return Tables{offsets, starts, emb, vlo, vhi, col, n_parents, m, k};
 }
 
+// Build the predicate a spec's host words describe (PredicateSpec.words(),
+// CanonicalSpec.words(), BranchSetSpec.words() in repro_torch/core/api.py)
+// and call launch(pred).  Words: kind, labeled, then for a conjunction
+// required, forbidden, distinct, greater, src_slot_eq, label, lab0, lab1,
+// and for a branch set n, then parent, anchor, required, forbidden,
+// distinct, smaller, first_pair per branch.  A malformed spec, or one that
+// lacks the state or labels it reads, is refused before any launch.
+template <class F>
+cudaError_t with_pred(const int* w, int n_words, const int* state,
+                      const int* labels, int n_labels, int n_rows,
+                      F&& launch) {
+  if (n_words < 2) return cudaErrorInvalidValue;
+  int kind = w[0];
+  bool labeled = w[1] != 0;
+  if (kind == kClique || kind == kConjunction) {
+    if (n_words != 10) return cudaErrorInvalidValue;
+    Spec spec{w[2], w[4], w[5], w[6]};
+    if (kind == kClique) {
+      if (labeled || w[3] != 0) return cudaErrorInvalidValue;
+      launch(CliquePred{spec});
+    } else if (labeled) {
+      if (labels == nullptr || n_labels < 1) return cudaErrorInvalidValue;
+      launch(ConjPred<true>{spec, w[3], w[7], w[8], w[9], labels, n_labels});
+    } else {
+      launch(ConjPred<false>{spec, w[3], -1, -1, -1, nullptr, 0});
+    }
+  } else if (kind == kCanonical) {
+    if (n_words != 2 || labeled) return cudaErrorInvalidValue;
+    launch(CanonPred{});
+  } else if (kind == kBranches) {
+    if (n_words < 3 || labeled || state == nullptr)
+      return cudaErrorInvalidValue;
+    BranchPred pred{};
+    pred.n = w[2];
+    if (pred.n < 1 || pred.n > kMaxBranches || n_words != 3 + 7 * pred.n)
+      return cudaErrorInvalidValue;
+    for (int i = 0; i < pred.n; ++i) {
+      const int* x = w + 3 + 7 * i;
+      if (x[0] < 0 || x[0] > 31) return cudaErrorInvalidValue;
+      pred.b[i] = Branch{x[0], x[1], x[2], x[3], x[4], x[5], x[6]};
+    }
+    pred.state = state;
+    pred.n_rows = n_rows;
+    launch(pred);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -461,57 +695,66 @@ int extend_candidates(const int* offsets, const int* starts, const int* emb,
 
 int extend_count(const int* offsets, const int* starts, const int* emb,
                  const int* vlo, const int* vhi, const int* col,
-                 const uint32_t* bits, int n_parents, int m, int k,
-                 int cand_cap, int use_bitmap, int n_words, int n_vertices,
-                 int required, int distinct, int greater, int src_slot_eq,
-                 int* counts, void* stream) {
+                 const uint32_t* bits, const int* state, const int* labels,
+                 int n_parents, int m, int k, int cand_cap, int use_bitmap,
+                 int n_words, int n_vertices, int n_labels, const int* spec,
+                 int n_spec, int* counts, void* stream) {
   Tables t = make_tables(offsets, starts, emb, vlo, vhi, col, n_parents, m, k);
-  Spec spec{required, distinct, greater, src_slot_eq};
   int n_tiles = (cand_cap + kTile - 1) / kTile;
-  extend_count_kernel<<<n_tiles, kTile, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      t, cand_cap, bits, use_bitmap, n_words, n_vertices, spec, counts);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(with_pred(
+      spec, n_spec, state, labels, n_labels, n_parents / k, [&](auto pred) {
+        extend_count_kernel<<<n_tiles, kTile, 0, st>>>(
+            t, cand_cap, bits, use_bitmap, n_words, n_vertices, pred,
+            counts);
+      }));
 }
 
 int extend_scatter(const int* offsets, const int* starts, const int* emb,
                    const int* vlo, const int* vhi, const int* col,
-                   const uint32_t* bits, int n_parents, int m, int k,
-                   int cand_cap, int use_bitmap, int n_words, int n_vertices,
-                   int required, int distinct, int greater, int src_slot_eq,
-                   const int* bases, int out_cap, int* row, int* u,
-                   void* stream) {
+                   const uint32_t* bits, const int* state, const int* labels,
+                   int n_parents, int m, int k, int cand_cap, int use_bitmap,
+                   int n_words, int n_vertices, int n_labels, const int* spec,
+                   int n_spec, const int* bases, int out_cap, int* row,
+                   int* u, int* state_out, void* stream) {
   Tables t = make_tables(offsets, starts, emb, vlo, vhi, col, n_parents, m, k);
-  Spec spec{required, distinct, greater, src_slot_eq};
   int n_tiles = (cand_cap + kTile - 1) / kTile;
-  extend_scatter_kernel<<<n_tiles, kTile, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      t, cand_cap, bits, use_bitmap, n_words, n_vertices, spec, bases,
-      out_cap, row, u);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_spec > 0 && spec[0] == kBranches && state_out == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(with_pred(
+      spec, n_spec, state, labels, n_labels, n_parents / k, [&](auto pred) {
+        extend_scatter_kernel<<<n_tiles, kTile, 0, st>>>(
+            t, cand_cap, bits, use_bitmap, n_words, n_vertices, pred, bases,
+            out_cap, row, u, state_out);
+      }));
 }
 
 int extend_pruned_1p(const int* offsets, const int* starts, const int* emb,
                      const int* vlo, const int* vhi, const int* col,
-                     const uint32_t* bits, int n_parents, int m, int k,
+                     const uint32_t* bits, const int* state,
+                     const int* labels, int n_parents, int m, int k,
                      int cand_cap, int use_bitmap, int n_words,
-                     int n_vertices, int required, int distinct, int greater,
-                     int src_slot_eq, int out_cap, void* scratch, int* row,
-                     int* u, int* n_surv, void* stream) {
+                     int n_vertices, int n_labels, const int* spec,
+                     int n_spec, int out_cap, void* scratch, int* row,
+                     int* u, int* state_out, int* n_surv, void* stream) {
   // scratch: n_tiles status words, then the ticket; both must start at
   // zero, or a stale status from the last launch corrupts the bases
   Tables t = make_tables(offsets, starts, emb, vlo, vhi, col, n_parents, m, k);
-  Spec spec{required, distinct, greater, src_slot_eq};
   int n_tiles = (cand_cap + kTile * kItems1p - 1) / (kTile * kItems1p);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_spec > 0 && spec[0] == kBranches && state_out == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaMemsetAsync(scratch, 0, (size_t)(n_tiles + 1) * 8, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   unsigned long long* status = static_cast<unsigned long long*>(scratch);
   unsigned int* ticket = reinterpret_cast<unsigned int*>(status + n_tiles);
-  extend_pruned_1p_kernel<<<n_tiles, kTile, 0, st>>>(
-      t, cand_cap, bits, use_bitmap, n_words, n_vertices, spec, out_cap,
-      status, ticket, row, u, n_surv);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(with_pred(
+      spec, n_spec, state, labels, n_labels, n_parents / k, [&](auto pred) {
+        extend_pruned_1p_kernel<<<n_tiles, kTile, 0, st>>>(
+            t, cand_cap, bits, use_bitmap, n_words, n_vertices, pred,
+            out_cap, status, ticket, row, u, state_out, n_surv);
+      }));
 }
 
 int extend_edge(const int* offsets, const int* starts, const int* slots,

@@ -5,7 +5,11 @@ dispatches on that device: a CPU tensor runs the plain PyTorch version in
 ``ref.py``; a CUDA tensor launches the CUDA kernel of ``csrc/extend.cu`` on
 the current stream, or raises.  There is no fallback on the card.
 ``LAUNCHES`` counts each wrapper's kernel launches, and nothing else, so a
-run can show that its path went through the kernels.
+run can show that its path went through the kernels; ``VARIANT_LAUNCHES``
+counts the pruned kernels' launches by the kind of spec they evaluated
+(``clique``, ``conjunction``, ``canonical``, ``branches``), by whether it
+read labels (``labeled``), and by whether it read the state column
+(``state``).
 
 The library is built (``repro_torch.kernels.build``) and loaded at the
 first launch, never at import.
@@ -18,7 +22,6 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.core.api import PredicateSpec
 from repro_torch.kernels import build
 from repro_torch.kernels.common import check_int32, launch
 from repro_torch.kernels.extend_fused import ref
@@ -33,6 +36,10 @@ LAUNCHES = dict.fromkeys(("extend_candidates", "extend_count",
                           "extend_scatter", "extend_edge",
                           "extend_pruned_1p"), 0)
 
+# Pruned-kernel launches by spec kind, label reads and state reads.
+VARIANT_LAUNCHES = dict.fromkeys(("clique", "conjunction", "canonical",
+                                  "branches", "labeled", "state"), 0)
+
 # Vertex slots per edge-induced embedding the edge kernel is built for
 # (E + 1 for E = 1 .. 7 edges), as the JAX package's MAX_EDGE_SLOTS.
 MAX_EDGE_SLOTS = 8
@@ -42,11 +49,11 @@ MAX_EDGE_SLOTS = 8
 def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     lib.extend_candidates.argtypes = [_P] * 6 + [_I] * 4 + [_P] * 5
-    lib.extend_count.argtypes = [_P] * 7 + [_I] * 11 + [_P] * 2
-    lib.extend_scatter.argtypes = ([_P] * 7 + [_I] * 11
-                                   + [_P, _I] + [_P] * 3)
+    pruned = [_P] * 9 + [_I] * 8 + [_P, _I]
+    lib.extend_count.argtypes = pruned + [_P] * 2
+    lib.extend_scatter.argtypes = pruned + [_P, _I] + [_P] * 4
     lib.extend_edge.argtypes = [_P] * 10 + [_I] * 6 + [_P] * 6
-    lib.extend_pruned_1p.argtypes = [_P] * 7 + [_I] * 12 + [_P] * 5
+    lib.extend_pruned_1p.argtypes = pruned + [_I] + [_P] * 6
     for fn in (lib.extend_candidates, lib.extend_count, lib.extend_scatter,
                lib.extend_edge, lib.extend_pruned_1p):
         fn.restype = ctypes.c_int
@@ -99,9 +106,10 @@ def extend_candidates(col_idx, offsets, starts, emb_flat, vlo, vhi, *,
 
 
 def _pruned_args(name, col_idx, offsets, starts, emb_flat, vlo, vhi, bits,
-                 k, cand_cap, n_vertices, n_words, spec, conn_mode):
+                 k, cand_cap, n_vertices, n_words, spec, conn_mode, state,
+                 labels):
     dev = check_int32(name, col_idx=col_idx, offsets=offsets, starts=starts,
-                 emb_flat=emb_flat, vlo=vlo, vhi=vhi, bits=bits)
+                      emb_flat=emb_flat, vlo=vlo, vhi=vhi, bits=bits)
     _check_parents(name, offsets, starts, emb_flat, vlo, vhi, k)
     if not 1 <= cand_cap <= 1 << 30:
         raise ValueError(f"{name}: cand_cap={cand_cap}")
@@ -111,48 +119,90 @@ def _pruned_args(name, col_idx, offsets, starts, emb_flat, vlo, vhi, bits,
     if conn_mode == "bitmap" and bits.shape[0] < n_vertices * n_words:
         raise ValueError(f"{name}: bitmap mode needs the full pack "
                          f"({n_vertices} x {n_words} words)")
-    if not isinstance(spec, PredicateSpec):
-        raise TypeError(f"{name}: spec must be a PredicateSpec")
+    if not callable(getattr(spec, "words", None)):
+        raise TypeError(f"{name}: spec must be a kernel-readable spec "
+                        "(PredicateSpec, CanonicalSpec or BranchSetSpec)")
+    if spec.kind == "branches":
+        if state is None:
+            raise ValueError(f"{name}: a branch set reads the state column")
+        check_int32(name, state=state, offsets=offsets)
+        if state.shape[0] != offsets.shape[0] // k:
+            raise ValueError(f"{name}: state has {state.shape[0]} rows, not "
+                             f"{offsets.shape[0] // k}")
+    elif state is not None:
+        raise ValueError(f"{name}: a {spec.kind} spec reads no state")
+    if spec.needs_labels:
+        if labels is None:
+            raise ValueError(f"{name}: a labeled spec reads the labels")
+        check_int32(name, labels=labels, offsets=offsets)
+    elif labels is not None:
+        raise ValueError(f"{name}: an unlabeled spec reads no labels")
+    words = spec.words()
     c_args = (*map(_ptr, (offsets, starts, emb_flat, vlo, vhi, col_idx,
                           bits)),
+              None if state is None else _ptr(state),
+              None if labels is None else _ptr(labels),
               offsets.shape[0], col_idx.shape[0], k, cand_cap,
               int(conn_mode == "bitmap"), n_words, n_vertices,
-              spec.required, spec.distinct, spec.greater, spec.src_slot_eq)
+              0 if labels is None else labels.shape[0],
+              (ctypes.c_int * len(words))(*words), len(words))
     return dev, c_args
+
+
+def _count_variant(spec) -> None:
+    VARIANT_LAUNCHES[spec.kind] += 1
+    if spec.needs_labels:
+        VARIANT_LAUNCHES["labeled"] += 1
+    if spec.kind == "branches":
+        VARIANT_LAUNCHES["state"] += 1
+
+
+def _pruned_outputs(dev, out_cap: int, spec):
+    """(row, u[, state]) output buffers: 0, -1 (and 0) where no survivor
+    lands."""
+    out = [torch.zeros(out_cap, dtype=torch.int32, device=dev),
+           torch.full((out_cap,), -1, dtype=torch.int32, device=dev)]
+    if spec.writes_state:
+        out.append(torch.zeros(out_cap, dtype=torch.int32, device=dev))
+    return out
 
 
 def extend_count(col_idx, offsets, starts, emb_flat, vlo, vhi, bits, *,
                  k: int, cand_cap: int, n_steps: int, n_vertices: int,
-                 n_words: int, spec: PredicateSpec, conn_mode: str):
+                 n_words: int, spec, conn_mode: str, state=None,
+                 labels=None):
     """Pass 1 of the pruned extend: survivors per tile of 512 slots.  See
     :func:`ref.extend_count_ref`."""
     dev, c_args = _pruned_args("extend_count", col_idx, offsets, starts,
                                emb_flat, vlo, vhi, bits, k, cand_cap,
-                               n_vertices, n_words, spec, conn_mode)
+                               n_vertices, n_words, spec, conn_mode, state,
+                               labels)
     if dev.type == "cpu":
         return ref.extend_count_ref(col_idx, offsets, starts, emb_flat, vlo,
                                     vhi, bits, k=k, cand_cap=cand_cap,
                                     n_steps=n_steps, n_vertices=n_vertices,
                                     n_words=n_words, spec=spec,
-                                    conn_mode=conn_mode)
+                                    conn_mode=conn_mode, state=state,
+                                    labels=labels)
     counts = torch.empty(-(-cand_cap // ref.BLOCK_C), dtype=torch.int32,
                          device=dev)
     _launch("extend_count", _lib().extend_count, *c_args, _ptr(counts))
     LAUNCHES["extend_count"] += 1
+    _count_variant(spec)
     return counts
-
 
 
 def extend_scatter(col_idx, offsets, starts, emb_flat, vlo, vhi, bits,
                    bases, *, k: int, cand_cap: int, out_cap: int,
-                   n_steps: int, n_vertices: int, n_words: int,
-                   spec: PredicateSpec, conn_mode: str):
-    """Pass 2 of the pruned extend: (row, u), each int32[out_cap], with
-    tile i's survivors at ``bases[i] + rank``.  See
-    :func:`ref.extend_scatter_ref`."""
+                   n_steps: int, n_vertices: int, n_words: int, spec,
+                   conn_mode: str, state=None, labels=None):
+    """Pass 2 of the pruned extend: (row, u), each int32[out_cap], and for a
+    branch set the compacted bitmap (row, u, state), with tile i's survivors
+    at ``bases[i] + rank``.  See :func:`ref.extend_scatter_ref`."""
     dev, c_args = _pruned_args("extend_scatter", col_idx, offsets, starts,
                                emb_flat, vlo, vhi, bits, k, cand_cap,
-                               n_vertices, n_words, spec, conn_mode)
+                               n_vertices, n_words, spec, conn_mode, state,
+                               labels)
     if (bases.dtype != torch.int32 or not bases.is_contiguous()
             or bases.device != dev
             or bases.shape != (-(-cand_cap // ref.BLOCK_C),)):
@@ -166,13 +216,15 @@ def extend_scatter(col_idx, offsets, starts, emb_flat, vlo, vhi, bits,
                                       cand_cap=cand_cap, out_cap=out_cap,
                                       n_steps=n_steps, n_vertices=n_vertices,
                                       n_words=n_words, spec=spec,
-                                      conn_mode=conn_mode)
-    row = torch.zeros(out_cap, dtype=torch.int32, device=dev)
-    u = torch.full((out_cap,), -1, dtype=torch.int32, device=dev)
+                                      conn_mode=conn_mode, state=state,
+                                      labels=labels)
+    out = _pruned_outputs(dev, out_cap, spec)
+    st_ptr = _ptr(out[2]) if spec.writes_state else None
     _launch("extend_scatter", _lib().extend_scatter, *c_args, _ptr(bases),
-            out_cap, _ptr(row), _ptr(u))
+            out_cap, _ptr(out[0]), _ptr(out[1]), st_ptr)
     LAUNCHES["extend_scatter"] += 1
-    return row, u
+    _count_variant(spec)
+    return tuple(out)
 
 
 def extend_edge(col_idx, edge_uid, offsets, starts, slots_flat, vlo,
@@ -226,45 +278,48 @@ PLAIN_VERSIONS = (ref.extend_candidates_ref, ref.extend_count_ref,
 
 
 def reset_counts() -> None:
-    """Zero ``LAUNCHES`` and every plain version's ``calls``."""
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    """Zero ``LAUNCHES``, ``VARIANT_LAUNCHES`` and every plain version's
+    ``calls``."""
+    for counts in (LAUNCHES, VARIANT_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
     for fn in PLAIN_VERSIONS:
         fn.calls = 0
 
 
 def extend_pruned(col_idx, offsets, starts, emb_flat, vlo, vhi, bits, *,
                   k: int, cand_cap: int, out_cap: int, n_steps: int,
-                  n_vertices: int, n_words: int, spec: PredicateSpec,
-                  conn_mode: str):
+                  n_vertices: int, n_words: int, spec, conn_mode: str,
+                  state=None, labels=None):
     """The two-pass pruned extend: count, exclusive scan, scatter.
 
     Pass 1 counts survivors per tile; an int32 ``torch.cumsum`` of the
     counts (left to PyTorch, as the JAX package leaves it to XLA) gives
     each tile's base and the true survivor total; pass 2 replays the
     predicate and writes each tile's survivors into its disjoint window.
-    Returns (row int32[out_cap], u int32[out_cap], n_surv int32[],
-    tile_counts int32[n_tiles]) — the contract of
+    Returns (row int32[out_cap], u int32[out_cap], [state int32[out_cap],]
+    n_surv int32[], tile_counts int32[n_tiles]) — the contract of
     ``repro.kernels.extend_fused.ref.fused_extend_pruned_mp_ref``.
     """
     kw = dict(k=k, cand_cap=cand_cap, n_steps=n_steps,
               n_vertices=n_vertices, n_words=n_words, spec=spec,
-              conn_mode=conn_mode)
+              conn_mode=conn_mode, state=state, labels=labels)
     counts = extend_count(col_idx, offsets, starts, emb_flat, vlo, vhi,
                           bits, **kw)
     incl = torch.cumsum(counts, 0, dtype=torch.int32)
     bases = incl - counts
-    row, u = extend_scatter(col_idx, offsets, starts, emb_flat, vlo, vhi,
-                            bits, bases, out_cap=out_cap, **kw)
-    return row, u, incl[-1], counts
+    out = extend_scatter(col_idx, offsets, starts, emb_flat, vlo, vhi,
+                         bits, bases, out_cap=out_cap, **kw)
+    return (*out, incl[-1], counts)
 
 
 def extend_pruned_1p(col_idx, offsets, starts, emb_flat, vlo, vhi, bits, *,
                      k: int, cand_cap: int, out_cap: int, n_steps: int,
-                     n_vertices: int, n_words: int, spec: PredicateSpec,
-                     conn_mode: str):
+                     n_vertices: int, n_words: int, spec, conn_mode: str,
+                     state=None, labels=None):
     """The single-pass pruned extend: (row int32[out_cap], u int32[out_cap],
-    n_surv int32[]), the survivors in slot order, and their true count.
+    [state int32[out_cap],] n_surv int32[]), the survivors in slot order,
+    and their true count; the state for a branch set.
 
     One kernel enumerates once; each CTA's tile (four 512-slot sub-tiles)
     finds its base by a decoupled look-back over the tiles before it.  The
@@ -273,7 +328,8 @@ def extend_pruned_1p(col_idx, offsets, starts, emb_flat, vlo, vhi, bits, *,
     """
     dev, c_args = _pruned_args("extend_pruned_1p", col_idx, offsets, starts,
                                emb_flat, vlo, vhi, bits, k, cand_cap,
-                               n_vertices, n_words, spec, conn_mode)
+                               n_vertices, n_words, spec, conn_mode, state,
+                               labels)
     if out_cap < 1:
         raise ValueError(f"extend_pruned_1p: out_cap={out_cap}")
     if dev.type == "cpu":
@@ -283,15 +339,17 @@ def extend_pruned_1p(col_idx, offsets, starts, emb_flat, vlo, vhi, bits, *,
                                         n_steps=n_steps,
                                         n_vertices=n_vertices,
                                         n_words=n_words, spec=spec,
-                                        conn_mode=conn_mode)
-    row = torch.zeros(out_cap, dtype=torch.int32, device=dev)
-    u = torch.full((out_cap,), -1, dtype=torch.int32, device=dev)
+                                        conn_mode=conn_mode, state=state,
+                                        labels=labels)
+    out = _pruned_outputs(dev, out_cap, spec)
     n_surv = torch.empty((), dtype=torch.int32, device=dev)
     # a status word per BLOCK_C slots (at least one per tile) and the
     # ticket, zeroed by the entry point on the stream before its launch
     scratch = torch.empty(-(-cand_cap // ref.BLOCK_C) + 1, dtype=torch.int64,
                           device=dev)
+    st_ptr = _ptr(out[2]) if spec.writes_state else None
     _launch("extend_pruned_1p", _lib().extend_pruned_1p, *c_args, out_cap,
-            _ptr(scratch), _ptr(row), _ptr(u), _ptr(n_surv))
+            _ptr(scratch), _ptr(out[0]), _ptr(out[1]), st_ptr, _ptr(n_surv))
     LAUNCHES["extend_pruned_1p"] += 1
-    return row, u, n_surv
+    _count_variant(spec)
+    return (*out, n_surv)

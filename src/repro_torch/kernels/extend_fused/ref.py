@@ -13,12 +13,18 @@ large for the plain version's temporaries can be checked piece by piece.
 For the pruned pair, ``lo`` and ``hi`` are tile-aligned (or ``hi`` is
 ``cand_cap``); the single-pass version takes any range and the survivor
 offset of the slots before it.
+
+The pruned versions evaluate every spec kind of ``repro_torch.core.api``
+(a conjunction, the canonical test, a branch set); ``state`` (int32[cap],
+the parents' state, which a branch set reads) and ``labels`` (the vertex
+labels, which a labeled spec gathers, clipped to the table) are keyword
+arguments.  A branch set's bitmap is also compacted, as a third output
+beside ``row`` and ``u``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.api import PredicateSpec
 from repro_torch.sparse.intersect import binary_contains
 
 # Candidate slots per tile of the pruned pair (the JAX kernels' block_c).
@@ -79,12 +85,14 @@ extend_candidates_ref.calls = 0
 
 def _pruned_mask(col_idx, offsets, starts, emb_flat, vlo, vhi, bits, *,
                  lo: int, hi: int, k: int, n_steps: int, n_vertices: int,
-                 n_words: int, spec: PredicateSpec, conn_mode: str):
-    """Stage K1 of the pruned pair: enumerate, probe, apply the predicate.
+                 n_words: int, spec, conn_mode: str, state=None,
+                 labels=None):
+    """Stage K1 of the pruned kernels: enumerate, probe, apply the spec.
 
-    Returns (row, u, keep) over slots ``lo .. hi-1``.  ``conn_mode`` is
-    "bitmap" (``bits`` holds the full pack, one int32 row pattern per
-    vertex) or "search" (CSR binary search; ``bits`` unused).
+    Returns (row, u, keep, new_state) over slots ``lo .. hi-1``, where
+    ``new_state`` is a branch set's bitmap (None for the other kinds).
+    ``conn_mode`` is "bitmap" (``bits`` holds the full pack, one int32 row
+    pattern per vertex) or "search" (CSR binary search; ``bits`` unused).
     """
     n_parents = offsets.shape[0]
     m = col_idx.shape[0]
@@ -111,27 +119,48 @@ def _pruned_mask(col_idx, offsets, starts, emb_flat, vlo, vhi, bits, *,
                              "('bitmap', 'search')")
         emb_cols.append(ev)
         conn_cols.append(found & (ev >= 0) & (u >= 0))
-    st = torch.zeros(hi - lo, dtype=torch.int32, device=u.device)
-    keep = spec(emb_cols, u, src_slot, st, conn_cols) & live
-    return row, u, keep
+    emb_cols, conn_cols = tuple(emb_cols), tuple(conn_cols)
+    if state is None:
+        st = torch.zeros(hi - lo, dtype=torch.int32, device=u.device)
+    else:
+        st = state[row.clamp(0, n_parents // k - 1).long()]
+    new_st = None
+    if spec.writes_state:
+        new_st = spec.bits(emb_cols, u, src_slot, st, conn_cols)
+        keep = new_st != 0
+    elif spec.needs_labels:
+        nl = labels.shape[0]
+        lab_cols = tuple(labels[c.clamp(0, nl - 1).long()]
+                         for c in emb_cols)
+        lab_u = labels[u.clamp(0, nl - 1).long()]
+        keep = spec(emb_cols, u, src_slot, st, conn_cols, lab_cols, lab_u)
+    else:
+        keep = spec(emb_cols, u, src_slot, st, conn_cols)
+    return row, u, keep & live, new_st
+
+
+def _tile_keep(keep, lo: int, hi: int):
+    """``keep`` as int32 tiles of ``BLOCK_C`` slots, zero-padded:
+    int32[n_tiles, BLOCK_C]."""
+    n_tiles = -(-(hi - lo) // BLOCK_C)
+    ki = torch.zeros(n_tiles * BLOCK_C, dtype=torch.int32, device=keep.device)
+    ki[:hi - lo] = keep.to(torch.int32)
+    return ki.view(n_tiles, BLOCK_C)
 
 
 def extend_count_ref(col_idx, offsets, starts, emb_flat, vlo, vhi, bits, *,
                      k: int, cand_cap: int, n_steps: int, n_vertices: int,
-                     n_words: int, spec: PredicateSpec, conn_mode: str,
-                     slots=None):
+                     n_words: int, spec, conn_mode: str, state=None,
+                     labels=None, slots=None):
     """Pass 1 of the pruned pair: survivors per tile of ``BLOCK_C`` slots
     (int32[ceil(cand_cap / BLOCK_C)], or the tiles of ``slots``)."""
     extend_count_ref.calls += 1
     lo, hi = _slot_range(slots, cand_cap, tiled=True)
-    _, _, keep = _pruned_mask(col_idx, offsets, starts, emb_flat, vlo, vhi,
-                              bits, lo=lo, hi=hi, k=k, n_steps=n_steps,
-                              n_vertices=n_vertices, n_words=n_words,
-                              spec=spec, conn_mode=conn_mode)
-    n_tiles = -(-(hi - lo) // BLOCK_C)
-    ki = torch.zeros(n_tiles * BLOCK_C, dtype=torch.int32, device=keep.device)
-    ki[:hi - lo] = keep.to(torch.int32)
-    return ki.view(n_tiles, BLOCK_C).sum(dim=1, dtype=torch.int32)
+    _, _, keep, _ = _pruned_mask(
+        col_idx, offsets, starts, emb_flat, vlo, vhi, bits, lo=lo, hi=hi,
+        k=k, n_steps=n_steps, n_vertices=n_vertices, n_words=n_words,
+        spec=spec, conn_mode=conn_mode, state=state, labels=labels)
+    return _tile_keep(keep, lo, hi).sum(dim=1, dtype=torch.int32)
 
 
 extend_count_ref.calls = 0
@@ -139,73 +168,74 @@ extend_count_ref.calls = 0
 
 def extend_scatter_ref(col_idx, offsets, starts, emb_flat, vlo, vhi, bits,
                        bases, *, k: int, cand_cap: int, out_cap: int,
-                       n_steps: int, n_vertices: int, n_words: int,
-                       spec: PredicateSpec, conn_mode: str, slots=None):
+                       n_steps: int, n_vertices: int, n_words: int, spec,
+                       conn_mode: str, state=None, labels=None, slots=None):
     """Pass 2 of the pruned pair: survivor r of tile i goes to
     ``bases[i] + r`` when that is below ``out_cap``.
 
-    Returns (row, u), each int32[out_cap]; slots no survivor reaches hold
-    0 and -1 (with ``slots``, only that range's survivors are written).
+    Returns (row, u), each int32[out_cap], and for a branch set also the
+    compacted bitmap (row, u, state); slots no survivor reaches hold 0, -1
+    and 0 (with ``slots``, only that range's survivors are written).
     """
     extend_scatter_ref.calls += 1
     lo, hi = _slot_range(slots, cand_cap, tiled=True)
-    row, u, keep = _pruned_mask(col_idx, offsets, starts, emb_flat, vlo,
-                                vhi, bits, lo=lo, hi=hi, k=k,
-                                n_steps=n_steps, n_vertices=n_vertices,
-                                n_words=n_words, spec=spec,
-                                conn_mode=conn_mode)
-    n_tiles = -(-(hi - lo) // BLOCK_C)
-    ki = torch.zeros(n_tiles * BLOCK_C, dtype=torch.int32, device=keep.device)
-    ki[:hi - lo] = keep.to(torch.int32)
-    rank = torch.cumsum(ki.view(n_tiles, BLOCK_C), dim=1,
-                        dtype=torch.int32).view(-1)[:hi - lo] - 1
+    row, u, keep, new_st = _pruned_mask(
+        col_idx, offsets, starts, emb_flat, vlo, vhi, bits, lo=lo, hi=hi,
+        k=k, n_steps=n_steps, n_vertices=n_vertices, n_words=n_words,
+        spec=spec, conn_mode=conn_mode, state=state, labels=labels)
+    ki = _tile_keep(keep, lo, hi)
+    n_tiles = ki.shape[0]
+    rank = torch.cumsum(ki, dim=1, dtype=torch.int32).view(-1)[:hi - lo] - 1
     t0 = lo // BLOCK_C
     tile_base = bases[t0:t0 + n_tiles].repeat_interleave(BLOCK_C)[:hi - lo]
-    return _place(row, u, keep, tile_base.long() + rank, out_cap)
+    return _place(row, u, new_st, keep, tile_base.long() + rank, out_cap)
 
 
 extend_scatter_ref.calls = 0
 
 
-def _place(row, u, keep, dest, out_cap: int):
-    """Write each kept slot's (row, u) at ``dest`` when that is below
-    ``out_cap``; (row, u), each int32[out_cap], hold 0 and -1 elsewhere."""
+def _place(row, u, new_st, keep, dest, out_cap: int):
+    """Write each kept slot's (row, u[, state]) at ``dest`` when that is
+    below ``out_cap``; each output int32[out_cap] holds 0, -1 (and 0)
+    elsewhere.  ``new_st`` None writes no state."""
     dest = torch.where(keep & (dest < out_cap), dest, out_cap)
-    row_out = torch.zeros(out_cap + 1, dtype=torch.int32, device=u.device)
-    u_out = torch.full((out_cap + 1,), -1, dtype=torch.int32,
-                       device=u.device)
-    row_out.index_put_((dest,), row.to(torch.int32))
-    u_out.index_put_((dest,), u)
-    return row_out[:out_cap], u_out[:out_cap]
+    cols = [(row, 0), (u, -1)] + ([] if new_st is None else [(new_st, 0)])
+    out = []
+    for vals, fill in cols:
+        buf = torch.full((out_cap + 1,), fill, dtype=torch.int32,
+                         device=u.device)
+        buf.index_put_((dest,), vals.to(torch.int32))
+        out.append(buf[:out_cap])
+    return tuple(out)
 
 
 def extend_pruned_1p_ref(col_idx, offsets, starts, emb_flat, vlo, vhi, bits,
                          *, k: int, cand_cap: int, out_cap: int, n_steps: int,
-                         n_vertices: int, n_words: int, spec: PredicateSpec,
-                         conn_mode: str, slots=None, base: int = 0):
+                         n_vertices: int, n_words: int, spec, conn_mode: str,
+                         state=None, labels=None, slots=None, base: int = 0):
     """The single-pass pruned extend (counterpart of
     ``fused_extend_pruned_ref``): enumerate, apply the predicate, and
     compact the survivors in slot order by one prefix sum.
 
-    Returns (row int32[out_cap], u int32[out_cap], n_surv int32[]); the
-    survivor count may exceed ``out_cap``, and lanes past ``min(n_surv,
-    out_cap)`` hold 0 and -1.  The same buffers as the two-pass pair's.
-    With ``slots=(lo, hi)`` (any range), only those slots' survivors are
+    Returns (row int32[out_cap], u int32[out_cap], n_surv int32[]), and for
+    a branch set (row, u, state int32[out_cap], n_surv); the survivor count
+    may exceed ``out_cap``, and lanes past ``min(n_surv, out_cap)`` hold 0,
+    -1 (and 0).  The same buffers as the two-pass pair's.  With
+    ``slots=(lo, hi)`` (any range), only those slots' survivors are
     written, from position ``base`` on (the survivors of slots before
     ``lo``), and ``n_surv`` is ``base`` plus their number, so a launch can
     be checked piece by piece with the offset carried from piece to piece.
     """
     extend_pruned_1p_ref.calls += 1
     lo, hi = _slot_range(slots, cand_cap, tiled=False)
-    row, u, keep = _pruned_mask(col_idx, offsets, starts, emb_flat, vlo,
-                                vhi, bits, lo=lo, hi=hi, k=k,
-                                n_steps=n_steps, n_vertices=n_vertices,
-                                n_words=n_words, spec=spec,
-                                conn_mode=conn_mode)
+    row, u, keep, new_st = _pruned_mask(
+        col_idx, offsets, starts, emb_flat, vlo, vhi, bits, lo=lo, hi=hi,
+        k=k, n_steps=n_steps, n_vertices=n_vertices, n_words=n_words,
+        spec=spec, conn_mode=conn_mode, state=state, labels=labels)
     incl = torch.cumsum(keep, 0, dtype=torch.int64)
-    row_out, u_out = _place(row, u, keep, base + incl - 1, out_cap)
+    out = _place(row, u, new_st, keep, base + incl - 1, out_cap)
     n_surv = (base + incl[-1]).to(torch.int32)
-    return row_out, u_out, n_surv
+    return out + (n_surv,)
 
 
 extend_pruned_1p_ref.calls = 0

@@ -279,3 +279,82 @@ def test_segsum_checks_hold_and_stop(monkeypatch, dtype):
     with pytest.raises(AssertionError, match="not close"):
         with smoke.KernelChecks(names=("sorted_segment_sum",)):
             segsum_ops.sorted_segment_sum(data, seg, 30)
+
+
+# -- the [mc] phase: the state, canonical and labeled variants
+
+def _mc_runs(smoke, g):
+    """A branch set with its state column (3-MC's trie) and the canonical
+    variant (4-MC's memo mode), against the census."""
+    from repro_torch.core import make_mc_app
+    c3, c4 = smoke.motif_census(g, 3), smoke.motif_census(g, 4)
+    return [("3-mc", make_mc_app(3), sum(c3), c3),
+            ("4-mc memo", make_mc_app(4, "memo"), sum(c4), c4)]
+
+
+@pytest.mark.parametrize("backend", ["cuda", "cuda-1p"])
+def test_mc_checks_hold_every_launch(backend):
+    smoke = _smoke()
+    g = rmat(5, 8, seed=0, device="cpu")
+    checks = smoke.mc_checked(g, _mc_runs(smoke, g), "cpu", backend=backend,
+                              chunk=512)
+    assert set(checks.err.values()) == {0}
+    assert set(checks.launches) == set(smoke.MC_PATH_KERNELS[backend])
+    assert min(checks.launches.values()) >= 3     # a cold inspection a level
+    if backend == "cuda-1p":
+        assert checks.pair_matches == checks.launches["extend_pruned_1p"]
+
+
+def _wrong_state(fn):
+    """Flip a bit of the first survivor's state in branch-set launches."""
+    def run(*a, **kw):
+        out = fn(*a, **kw)
+        if kw["spec"].kind != "branches":
+            return out
+        out = list(out)
+        out[2] = out[2].clone()
+        out[2][0] ^= 1 << 7
+        return tuple(out)
+    return run
+
+
+@pytest.mark.parametrize("backend,name", [("cuda", "extend_scatter"),
+                                          ("cuda-1p", "extend_pruned_1p")])
+def test_mc_checks_stop_at_a_wrong_state(monkeypatch, backend, name):
+    smoke = _smoke()
+    g = rmat(5, 8, seed=0, device="cpu")
+    monkeypatch.setattr(ops, name, _wrong_state(getattr(ops, name)))
+    with pytest.raises(AssertionError, match=f"{name}.*plain version"):
+        smoke.mc_checked(g, _mc_runs(smoke, g), "cpu", backend=backend,
+                         chunk=512)
+
+
+def test_levels_equal_compares_the_state_column():
+    import dataclasses as dc
+
+    from repro_torch.core import Miner, make_mc_app
+    smoke = _smoke()
+    g = rmat(5, 8, seed=0, device="cpu")
+    levels = Miner(g, make_mc_app(4), device="cpu").run().levels
+    assert smoke.levels_equal(levels, levels) == 3
+    bad = levels[:-1] + [dc.replace(levels[-1],
+                                    state=levels[-1].state ^ 1)]
+    with pytest.raises(AssertionError, match="state differs"):
+        smoke.levels_equal(levels, bad)
+
+
+def test_args_keeper_keeps_the_level_it_names():
+    from repro_torch.core import Miner, make_mc_app
+    smoke = _smoke()
+    g = rmat(5, 8, seed=0, device="cpu")
+    with smoke.ArgsKeeper(("extend_count", "extend_scatter"), k=3) as keep:
+        Miner(g, make_mc_app(4), device="cpu").run()
+    assert sorted(keep.kept) == ["extend_count", "extend_scatter"]
+    assert all(kw["k"] == 3 and kw["state"] is not None
+               for _, kw in keep.kept.values())
+    assert ops.extend_count.__name__ == "extend_count"        # restored
+    row = smoke.bytes_moved("extend_scatter", *keep.kept["extend_scatter"])
+    a, kw = keep.kept["extend_scatter"]
+    plain_kw = {**kw, "state": None}
+    assert row - smoke.bytes_moved("extend_scatter", a, plain_kw) == \
+        4 * (kw["state"].numel() + kw["out_cap"])

@@ -15,10 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (Miner, make_cf_app, make_fsm_app, make_tc_app,
-                              triangle_count_fused)
-from repro_torch.core.api import (PredicateSpec, make_ctx,
+from repro_torch.core import (Miner, Pattern, make_cf_app, make_fsm_app,
+                              make_mc_app, make_tc_app, pattern_app,
+                              pattern_set_app, triangle_count_fused)
+from repro_torch.core.api import (CANONICAL, PredicateSpec, make_ctx,
                                   resolve_kernel_predicate)
+from repro_torch.core.apps.psm import make_set_branch_spec
+from repro_torch.core.patterns import compile_pattern_set, motif_patterns
 from repro_torch.graph import generators as TG
 from repro_torch.graph.csr import pack_adjacency
 from repro_torch.kernels.extend_fused import ops, ref
@@ -174,6 +177,121 @@ def _intersect_inputs(device, seed=4, n=60, n_pairs=1000):
     hi_b[::7] = lo_b[::7]                             # empty B
     hi_a[3::11] = lo_a[3::11]                         # empty A
     return g, (g.col_idx, lo_a, hi_a, lo_b, hi_b)
+
+
+def _variant_spec(name: str, device):
+    """(k, spec, state, labels) of one pruned-kernel variant: an induced
+    conjunction, a labeled one, the canonical test, and trie levels of
+    4-motif counting (k = 3) and of a directed set (k = 2, first_pair)."""
+    rng = np.random.default_rng(7)
+    if name == "conjunction":
+        return 3, PredicateSpec(required=0b011, forbidden=0b100,
+                                distinct=0b100, greater=0b001), None, None
+    if name == "labeled":
+        labels = torch.from_numpy(rng.integers(0, 3, 60).astype(
+            np.int32)).to(device)
+        return 3, PredicateSpec(required=0b001, forbidden=0b010,
+                                distinct=0b110, label=1,
+                                first_labels=(0, 2)), None, labels
+    if name == "canonical":
+        return 3, CANONICAL, None, None
+    if name == "branches":
+        plan = compile_pattern_set(motif_patterns(4))
+        k, level = 3, plan.levels[1]
+    else:                                   # "first_pair"
+        plan = compile_pattern_set([Pattern.named(n) for n in
+                                    ("diamond", "4-cycle", "4-star")])
+        assert plan.directed
+        k, level = 2, plan.levels[0]
+    n_bits = max(br.parent for br in level) + 1
+    state = torch.from_numpy(rng.integers(0, 1 << n_bits, 120).astype(
+        np.int32)).to(device)
+    return k, make_set_branch_spec(level), state, None
+
+
+SPEC_VARIANTS = ("conjunction", "labeled", "canonical", "branches",
+                 "first_pair")
+
+
+@pytest.mark.parametrize("conn_mode", ["bitmap", "search"])
+@pytest.mark.parametrize("variant", SPEC_VARIANTS)
+def test_pruned_kernels_match_plain_for_every_spec_kind(cuda, conn_mode,
+                                                        variant):
+    k, spec, state, labels = _variant_spec(variant, cuda)
+    g, args, bits, n_words, n_steps, total = _inputs(cuda, conn_mode, k=k)
+    for out_cap in (total + 7, 100):                 # roomy, overflow
+        kw = dict(k=k, cand_cap=total + 300, out_cap=out_cap,
+                  n_steps=n_steps, n_vertices=g.n_vertices,
+                  n_words=n_words, spec=spec, conn_mode=conn_mode,
+                  state=state, labels=labels)
+        ops.reset_counts()
+        pair = ops.extend_pruned(*args, bits, **kw)
+        one = ops.extend_pruned_1p(*args, bits, **kw)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["extend_count"] == ops.LAUNCHES[
+            "extend_pruned_1p"] == 1
+        assert ops.VARIANT_LAUNCHES[spec.kind] == 3
+        assert ops.VARIANT_LAUNCHES["labeled"] == 3 * (labels is not None)
+        assert ops.VARIANT_LAUNCHES["state"] == 3 * (state is not None)
+        assert sum(f.calls for f in ops.PLAIN_VERSIONS) == 0
+        counts = ref.extend_count_ref(*args, bits, **{
+            n: v for n, v in kw.items() if n != "out_cap"})
+        incl = torch.cumsum(counts, 0, dtype=torch.int32)
+        want = ref.extend_scatter_ref(*args, bits, incl - counts, **kw)
+        assert len(pair) == len(want) + 2 == 4 + spec.writes_state
+        for a, b in zip(pair, (*want, incl[-1], counts)):
+            assert torch.equal(a, b)
+        want1 = ref.extend_pruned_1p_ref(*args, bits, **kw)
+        for a, b in zip(one, want1):
+            assert torch.equal(a, b)
+        assert int(one[-1]) == int(incl[-1])
+
+
+def test_pruned_kernels_refuse_missing_state_or_labels(cuda):
+    g, args, bits, n_words, n_steps, total = _inputs(cuda, "search")
+    k, spec, state, _ = _variant_spec("branches", cuda)
+    kw = dict(k=3, cand_cap=total + 300, out_cap=64, n_steps=n_steps,
+              n_vertices=g.n_vertices, n_words=n_words, conn_mode="search")
+    with pytest.raises(ValueError, match="state"):
+        ops.extend_pruned_1p(*args, bits, spec=spec, **kw)
+    with pytest.raises(ValueError, match="rows"):
+        ops.extend_pruned_1p(*args, bits, spec=spec, state=state[:7], **kw)
+    _, lspec, _, labels = _variant_spec("labeled", cuda)
+    with pytest.raises(ValueError, match="labels"):
+        ops.extend_count(*args, bits, spec=lspec,
+                         **{n: v for n, v in kw.items() if n != "out_cap"})
+
+
+MC_APPS = {
+    "mc3": lambda: make_mc_app(3), "mc4": lambda: make_mc_app(4),
+    "mc4-memo": lambda: make_mc_app(4, "memo"),
+    "mc4-generic": lambda: make_mc_app(4, "generic"),
+    "diamond": lambda: pattern_app(Pattern.named("diamond")),
+    "lchain": lambda: pattern_app(Pattern.from_edges(
+        [(0, 1), (1, 2)], labels=[0, 1, 2])),
+    "directed-set": lambda: pattern_set_app(
+        [Pattern.named(n) for n in ("diamond", "4-cycle", "4-star")]),
+}
+
+
+@pytest.mark.parametrize("backend", ["cuda", "cuda-1p"])
+@pytest.mark.parametrize("app_name", sorted(MC_APPS))
+def test_cuda_motifs_match_plain_backend(cuda, app_name, backend):
+    g = TG.rmat(8, 8, seed=0, labels=3, device=cuda)
+    want = Miner(g, MC_APPS[app_name](), backend="torch-ref",
+                 device=cuda).run()
+    ops.reset_counts()
+    m = Miner(g, MC_APPS[app_name](), backend=backend, device=cuda)
+    for run in ("cold", "warm"):
+        got = m.run()
+        assert got.count == want.count, run
+        if want.p_map is None:
+            assert got.p_map is None
+        else:
+            assert np.array_equal(got.p_map, want.p_map), run
+    assert sum(f.calls for f in ops.PLAIN_VERSIONS) == 0
+    assert sum(ops.VARIANT_LAUNCHES[n] for n in (
+        "conjunction", "canonical", "branches")) >= 2
 
 
 @pytest.mark.parametrize("case", ["full", "truncated", "one-step"])

@@ -41,6 +41,8 @@ def test_port_imports_and_mines_with_jax_blocked():
         "for name in ('jax', 'jaxlib', 'repro'):\n"
         "    sys.modules[name] = None\n"
         "import repro_torch.core, repro_torch.interop\n"
+        "import repro_torch.core.patterns, repro_torch.core.apps.mc\n"
+        "import repro_torch.core.apps.psm\n"
         "import repro_torch.kernels.build\n"
         "import repro_torch.kernels.extend_fused.ops\n"
         "import repro_torch.kernels.flash_attention.ops\n"
@@ -50,6 +52,9 @@ def test_port_imports_and_mines_with_jax_blocked():
         "from repro_torch.graph.generators import clique\n"
         "m = Miner(clique(6, device='cpu'), make_cf_app(4), device='cpu')\n"
         "assert m.run().count == 15 and m.run().count == 15\n"
+        "from repro_torch.core import make_mc_app\n"
+        "m = Miner(clique(5, device='cpu'), make_mc_app(4), device='cpu')\n"
+        "assert list(m.run().p_map) == [0, 0, 0, 0, 0, 5]\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
         "               for k in sys.modules if sys.modules[k] is not None)\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
