@@ -63,15 +63,37 @@ Phases (any failure raises, and the script exits non-zero):
               labeled chain 0-1-2 on ``rmat(12, 8, seed=0, labels=3)``.
               Then the main sizes, 3-MC on ``rmat(15, 16, seed=0)``
               (885,076,244 level-2 candidates), 4-MC and the diamond on
-              ``rmat(10, 16, seed=0)``: checked the same way (the plain
-              versions over 2^25-slot pieces), then counted, cold and warm
-              on both backends, each count and p_map against a scipy
-              census computed here, no plain call, and the two backends'
-              levels (vid, idx, state) equal.  Then the branch-set + state variant
-              of ``extend_count``, ``extend_scatter`` and
-              ``extend_pruned_1p`` timed on 4-MC's level-3 arguments, and a
+              ``rmat(10, 16, seed=0)``, 4-MC's ``memo`` mode (the
+              canonical test) on RMAT-10 and the labeled chain on RMAT-12:
+              checked the same way (the plain versions over 2^25-slot
+              pieces), then counted, cold and warm on both backends, each
+              count and p_map against a scipy census computed here, no
+              plain call, and the two backends' levels (vid, idx, state)
+              equal.  Then ``extend_count``, ``extend_scatter`` and
+              ``extend_pruned_1p`` timed in each spec kind's instantiation
+              on a main-path level (the branch set + state on 4-MC's level
+              3, the conjunction on the diamond's, the canonical test on
+              4-MC memo's, the labeled conjunction on the chain's), and a
               warm-run profile of 4-MC.
-9. lm       — Qwen3-0.6B at full width in bf16 (random weights from seed 0)
+9. mixed    — partial and core packs, K1's mixed connectivity probe.  At
+              ``rmat(16, 16, seed=0)`` with a budget of 134,217,728 B (a
+              quarter of the full pack): ``relabel=True`` (the core pack,
+              32,768 rows and columns) and ``pack_partial=True`` (16,384
+              rows), each pack's ``pack_hit_rate`` against the JAX
+              package's.  TC and 4-CF cold and warm on ``cuda`` and
+              ``cuda-1p`` with every launch checked, the mixed kernels
+              timed on TC's level-2 arguments beside search mode on the
+              same arguments, then the counted main path: counts equal to
+              scipy, every pruned launch in mixed mode, no plain call, and
+              every level (vid, idx) equal to the same Miner's run without
+              a pack.  Then 3-MC on ``rmat(15, 16, seed=0)`` with
+              ``relabel=True`` at 33,554,432 B (the branch set + state in
+              mixed mode) the same way, and each other predicate in mixed
+              mode under a partial and a core pack, checked small: the
+              diamond on RMAT-10, the labeled chain on RMAT-12, 3-MC
+              ``memo`` on RMAT-8; and one ``search="linear"`` Miner on
+              ``torch-ref``.
+10. lm      — Qwen3-0.6B at full width in bf16 (random weights from seed 0)
               served through ``serve_lm``: request set A (batch 4, prompt
               4,096 tokens, 32 new) and set B (batch 1, prompt 32,768, 8
               new), every ``flash_attention`` launch of both held against
@@ -87,7 +109,7 @@ Phases (any failure raises, and the script exits non-zero):
               prompt 512, TF32 off, the FMA variant): prefill on the
               kernel against prefill on the plain attention (last-token
               logits within 1e-3) and the same 8 greedy tokens.
-10. segsum  — the segment sum ``sorted_segment_sum`` at ogb_products'
+11. segsum  — the segment sum ``sorted_segment_sum`` at ogb_products'
               scale (``configs/shapes.py``: 61,859,140 rows of 100 f32
               values into 2,449,029 sorted segments, 24.7 GB): sorted,
               unsorted and bf16 launches held against the plain version,
@@ -228,7 +250,8 @@ class KernelChecks:
     counting the live candidates that the app's vertex mask dropped.
     The float kernels (``FLOAT_KERNELS``) are held to a stated tolerance
     by their checks, which raise themselves; ``err`` keeps the largest
-    absolute difference.
+    absolute difference.  ``plain_ms`` sums the CUDA-event times of the
+    pruned kernels' plain calls.
     """
 
     def __init__(self, chunk: int = 1 << 25, names=tuple(REPLACES)):
@@ -244,6 +267,22 @@ class KernelChecks:
         self.edge_levels: list[tuple[int, int, int, int]] = []
         self.kept: dict = {}
         self.keep = False
+        self.plain_ms = 0.0
+
+    def _plain(self, a, fn):
+        """``fn()``, a plain version's call on inputs ``a``, its time added
+        to ``plain_ms`` when they lie on the card."""
+        import torch
+        if a[0].device.type != "cuda":
+            return fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        self.plain_ms += start.elapsed_time(end)
+        return out
 
     def __enter__(self):
         self._saved = {name: getattr(wrapper_module(name), name)
@@ -289,7 +328,8 @@ class KernelChecks:
         from repro_torch.kernels.extend_fused import ref
         err = 0
         for lo, hi in self._ranges(kw["cand_cap"]):
-            want = ref.extend_count_ref(*a, **kw, slots=(lo, hi))
+            want = self._plain(a, lambda: ref.extend_count_ref(
+                *a, **kw, slots=(lo, hi)))
             t0 = lo // ref.BLOCK_C
             err = max(err, max_abs_err([got[t0:t0 + want.shape[0]]], [want]))
         return err
@@ -309,8 +349,8 @@ class KernelChecks:
                   if hi < cand_cap else out_cap)
             if w0 >= out_cap:
                 break              # this piece and the rest write nothing
-            want = ref.extend_scatter_ref(*a, **{**kw, "out_cap": out_cap},
-                                          slots=(lo, hi))
+            want = self._plain(a, lambda: ref.extend_scatter_ref(
+                *a, **{**kw, "out_cap": out_cap}, slots=(lo, hi)))
             err = max(err, max_abs_err([g[w0:w1] for g in got],
                                        [w[w0:w1] for w in want]))
         return err
@@ -347,8 +387,9 @@ class KernelChecks:
         cand_cap = kw["cand_cap"]
         base = err = 0
         for lo, hi in self._ranges(cand_cap):
-            *want, n = ref.extend_pruned_1p_ref(
-                *a, **{**kw, "out_cap": out_cap}, slots=(lo, hi), base=base)
+            *want, n = self._plain(a, lambda: ref.extend_pruned_1p_ref(
+                *a, **{**kw, "out_cap": out_cap}, slots=(lo, hi),
+                base=base))
             end = int(n)
             w0 = min(base, out_cap)
             w1 = min(end, out_cap) if hi < cand_cap else out_cap
@@ -431,12 +472,13 @@ class KernelChecks:
 def checked_runs(graph, apps, expected: dict, label: str,
                  pack_max_bytes: int = 4 << 20, keep: str | None = None,
                  chunk: int = 1 << 25, backend: str = "cuda",
-                 names=tuple(REPLACES)) -> KernelChecks:
+                 names=tuple(REPLACES), **miner_kw) -> KernelChecks:
     """Cold then warm ``Miner.run`` of each app on ``backend``, on the
     graph's device, every launch of the kernels ``names`` held against its
     plain version, and each count against ``expected``.  ``keep`` names the
     app whose first launch of each kernel keeps its arguments for
-    timing."""
+    timing; ``miner_kw`` are further ``Miner`` options (``relabel``,
+    ``pack_partial``)."""
     import torch
     from repro_torch.core import Miner
 
@@ -448,7 +490,8 @@ def checked_runs(graph, apps, expected: dict, label: str,
         for name, app in apps:
             checks.keep = name == keep
             miner = Miner(graph, app, backend=backend,
-                          pack_max_bytes=pack_max_bytes, device=graph.device)
+                          pack_max_bytes=pack_max_bytes, device=graph.device,
+                          **miner_kw)
             for run in ("cold", "warm"):
                 count = miner.run().count
                 if count != expected[name]:
@@ -477,7 +520,13 @@ def bytes_moved(name: str, a, kw) -> int:
     parents = 5 * offsets.shape[0] * 4
     if name == "extend_candidates":
         return parents + col.shape[0] * 4 + 4 * cand_cap * 4
+    # the full pack is read in bitmap mode.  A partial or core pack is not
+    # counted: a probe reads only the words it addresses, and the CSR,
+    # which the gather reads in full, answers every probe too, so mixed
+    # mode moves search mode's bytes and the row map
     bits = a[6].shape[0] * 4 if kw["conn_mode"] == "bitmap" else 0
+    if kw["conn_mode"] == "mixed":
+        bits = kw["row_slot"].numel() * 4
     # a branch set reads the parents' state and writes the survivors'; a
     # labeled spec reads the labels
     state, labels = kw.get("state"), kw.get("labels")
@@ -491,6 +540,13 @@ def bytes_moved(name: str, a, kw) -> int:
     if name == "extend_count":
         return reads + tiles
     return reads + 2 * tiles + outs * kw["out_cap"] * 4   # bases in
+
+
+# Candidate slots up to which a timed plain version runs in one call; a
+# larger pruned launch's plain version runs (and is timed) in pieces of
+# this many slots, each piece compared with its window of the kernel's
+# output, as KernelChecks does
+PLAIN_WHOLE = 1 << 28
 
 
 def time_kernels(kept: dict) -> dict:
@@ -512,11 +568,22 @@ def time_kernels(kept: dict) -> dict:
         a, kw = kept[name]
         wrapper = getattr(wrapper_module(name), name)
         ms, got = cuda_ms(lambda: wrapper(*a, **kw), reps=10)
-        plain_ms, want = cuda_ms(lambda: plain[name](*a, **kw), reps=2)
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = max_abs_err(got, want)
-        del got, want
+        if name in PRUNED_REPLACES and kw["cand_cap"] > PLAIN_WHOLE:
+            pieces = KernelChecks(PLAIN_WHOLE, names=())
+            if name == "extend_count":
+                err = pieces._check_extend_count(a, kw, got)
+            elif name == "extend_scatter":
+                err = pieces._scatter_err(a, kw, got, kw["out_cap"])
+            else:
+                err = pieces._lookback_err(a, kw, got, kw["out_cap"])
+            plain_ms = pieces.plain_ms
+        else:
+            plain_ms, want = cuda_ms(lambda: plain[name](*a, **kw), reps=2)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err = max_abs_err(got, want)
+            del want
+        del got
         nbytes = bytes_moved(name, a, kw)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -867,10 +934,18 @@ def tc_fused_main(graph, want: int) -> int:
 # variants of the pruned kernels
 
 
-# the timing rows of the branch-set + state variant (4-MC's level 3)
-MC_REPLACES = {"extend_count:branches": f"{TPU_KERNEL}:505",
-               "extend_scatter:branches": f"{TPU_KERNEL}:519",
-               "extend_pruned_1p:branches": f"{TPU_KERNEL}:322"}
+# the pruned kernels' TPU counterparts, by wrapper
+PRUNED_REPLACES = {"extend_count": f"{TPU_KERNEL}:505",
+                   "extend_scatter": f"{TPU_KERNEL}:519",
+                   "extend_pruned_1p": f"{TPU_KERNEL}:322"}
+# the timing rows of the spec-kind variants: the branch set + state (4-MC's
+# level 3), the conjunction (psm-diamond's level 3), the canonical test
+# (4-MC memo's level 3), all on RMAT-10, and the labeled conjunction (the
+# labeled chain's level 2 on rmat(12, 8, labels=3)); each row's launches
+# are its instantiation's on the [mc] main path, in any probe mode
+MC_KINDS = ("branches", "conjunction", "canonical", "labeled")
+MC_REPLACES = {f"{name}:{kind}": line for kind in MC_KINDS
+               for name, line in PRUNED_REPLACES.items()}
 # the directed set: no first-pair symmetry for the 4-star, so the trie
 # takes both edge orientations and checks v0 < v1 on the other branches
 DIRECTED_SET = ("diamond", "4-cycle", "4-star")
@@ -967,11 +1042,12 @@ MC_PATH_KERNELS = {"cuda": ("extend_candidates", "extend_count",
 
 def mc_checked(graph, runs, label: str, pack_max_bytes: int = 4 << 20,
                backend: str = "cuda", chunk: int = 1 << 25,
-               keep: str | None = None) -> KernelChecks:
+               keep: str | None = None, **miner_kw) -> KernelChecks:
     """Cold then warm ``Miner.run`` of each ``(name, app, count, p_map)``
     of ``runs`` on ``backend``, every launch of the backend's kernels held
     against its plain version (state buffers included), and each count and
-    p_map against the expected ones."""
+    p_map against the expected ones; ``miner_kw`` are further ``Miner``
+    options."""
     import torch
     from repro_torch.core import Miner
 
@@ -980,7 +1056,8 @@ def mc_checked(graph, runs, label: str, pack_max_bytes: int = 4 << 20,
         for name, app, count, p_map in runs:
             checks.keep = name == keep
             miner = Miner(graph, app, backend=backend,
-                          pack_max_bytes=pack_max_bytes, device=graph.device)
+                          pack_max_bytes=pack_max_bytes, device=graph.device,
+                          **miner_kw)
             for run in ("cold", "warm"):
                 r = miner.run()
                 got = None if r.p_map is None else [int(x) for x in r.p_map]
@@ -996,11 +1073,13 @@ def mc_checked(graph, runs, label: str, pack_max_bytes: int = 4 << 20,
 
 
 def mc_main(graph, name: str, app, count: int, p_map, backend: str,
-            keep_levels: bool = False):
-    """Cold then warm ``Miner.run`` of ``app`` on ``backend``, the launches
-    counted: every kernel of the backend's path launches, no other kernel
-    and no plain version runs.  Returns the launches per kernel, per
-    variant, and the cold run's levels when ``keep_levels``."""
+            keep_levels: bool = False, mode: str | None = None, **miner_kw):
+    """Cold then warm ``Miner.run`` of ``app`` on ``backend`` (with Miner
+    options ``miner_kw``), the launches counted: every kernel of the
+    backend's path launches, no other kernel and no plain version runs,
+    and with ``mode`` every pruned launch probes in that mode.  Returns the
+    launches per kernel, per template instantiation (``ops.
+    INSTANCE_LAUNCHES``), and the cold run's levels when ``keep_levels``."""
     import torch
     from repro_torch.core import Miner
     from repro_torch.kernels.extend_fused import ops
@@ -1008,7 +1087,7 @@ def mc_main(graph, name: str, app, count: int, p_map, backend: str,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
-    miner = Miner(graph, app, backend=backend)
+    miner = Miner(graph, app, backend=backend, **miner_kw)
     times, results = {}, {}
     for run in ("cold", "warm"):
         torch.cuda.synchronize()
@@ -1017,6 +1096,7 @@ def mc_main(graph, name: str, app, count: int, p_map, backend: str,
         torch.cuda.synchronize()
         times[run] = time.perf_counter() - t0
     launches, variants = dict(ops.LAUNCHES), dict(ops.VARIANT_LAUNCHES)
+    modes, instances = ops.mode_launches(), dict(ops.INSTANCE_LAUNCHES)
     plain = sum(fn.calls for fn in ops.PLAIN_VERSIONS)
     peak = torch.cuda.max_memory_allocated()
     (ex,) = miner._executors.values()
@@ -1026,7 +1106,11 @@ def mc_main(graph, name: str, app, count: int, p_map, backend: str,
     log(f"[main] {name} {backend}: cold {got['cold']} in {times['cold']:.3f} "
         f"s, warm {got['warm']} in {times['warm']:.3f} s, plan "
         f"{list(ex.plan.caps)}, replans {ex.n_replans}, peak {peak} B, "
-        f"launches {launches}, variants {variants}, plain calls {plain}")
+        f"launches {launches}, variants {variants}, modes {modes}, plain "
+        f"calls {plain}")
+    if mode is not None and modes[mode] != sum(modes.values()):
+        raise AssertionError(f"{name} {backend}: modes {modes}, not all "
+                             f"{mode}")
     for run in got:
         if got[run] != (count, p_map):
             raise AssertionError(f"{name} {backend} {run}: {got[run]} != "
@@ -1038,7 +1122,7 @@ def mc_main(graph, name: str, app, count: int, p_map, backend: str,
                              f"calls {plain}")
     levels = results["cold"].levels if keep_levels else None
     del miner, results
-    return launches, variants, levels
+    return launches, instances, levels
 
 
 def levels_equal(a, b) -> int:
@@ -1153,10 +1237,13 @@ def mc_phase(timing: dict, launches: dict) -> dict:
         f"{g15.n_edges // 2} undirected edges, level 2: "
         f"{2 * int((deg * deg).sum())} candidates; 3-motifs {c3_15} "
         f"({time.perf_counter() - t0:.1f} s)")
+    memo = make_mc_app(4, "memo")
     mains = [("3-mc rmat15", g15, make_mc_app(3), c3_15),
              ("4-mc rmat10", g10, make_mc_app(4), c4_10),
-             ("psm-diamond rmat10", g10, diamond, c4_10[4])]
-    branch_launches = dict.fromkeys(MC_REPLACES, 0)
+             ("4-mc memo rmat10", g10, memo, c4_10),
+             ("psm-diamond rmat10", g10, diamond, c4_10[4]),
+             ("psm-lchain rmat12", g12l, chain, n_chain)]
+    kind_launches = dict.fromkeys(MC_REPLACES, 0)
     for name, graph, app, want in mains:
         count, p_map = (want, None) if isinstance(want, int) else (
             sum(want), want)
@@ -1167,13 +1254,13 @@ def mc_phase(timing: dict, launches: dict) -> dict:
         log(f"[check] {name}: {time.perf_counter() - t0:.1f} s")
         kept = {}
         for backend in ("cuda", "cuda-1p"):
-            got, variants, levels = mc_main(graph, name, app, count, p_map,
-                                            backend, keep_levels=True)
+            got, instances, levels = mc_main(graph, name, app, count, p_map,
+                                             backend, keep_levels=True)
             for k, n in got.items():
                 launches[k] = launches.get(k, 0) + n
-            if app.needs_reduce:           # the trie: every launch is a
-                for k in MC_REPLACES:      # branch set with its state
-                    branch_launches[k] += got[k.split(":")[0]]
+            for (wrapper, kind, _), n in instances.items():
+                if f"{wrapper}:{kind}" in kind_launches:
+                    kind_launches[f"{wrapper}:{kind}"] += n
             kept[backend] = levels
         n_levels = levels_equal(kept["cuda"], kept["cuda-1p"])
         log(f"[main] {name}: cuda and cuda-1p levels equal (vid, idx, state) "
@@ -1183,20 +1270,244 @@ def mc_phase(timing: dict, launches: dict) -> dict:
     del g15
     torch.cuda.empty_cache()
 
-    keeper = ArgsKeeper(("extend_count", "extend_scatter"), k=3)
-    with keeper:
-        Miner(g10, make_mc_app(4), backend="cuda").run()
-    with ArgsKeeper(("extend_pruned_1p",), k=3) as keeper_1p:
-        Miner(g10, make_mc_app(4), backend="cuda-1p").run()
-    keeper.kept.update(keeper_1p.kept)
-    rows = time_kernels(keeper.kept)
-    for name in MC_REPLACES:
-        timing[name] = rows[name.split(":")[0]]
-        launches[name] = branch_launches[name]
-        errs[name] = errs.get(name.split(":")[0], 0)
-    del keeper, keeper_1p, rows
-    torch.cuda.empty_cache()
+    # each spec kind's three kernels timed on one main-path level
+    timed = {"branches": (g10, make_mc_app(4), 3),
+             "conjunction": (g10, diamond, 3),
+             "canonical": (g10, memo, 3), "labeled": (g12l, chain, 2)}
+    for kind, (graph, app, k) in timed.items():
+        log(f"[timing] {kind} variant (k {k}):")
+        rows = time_kernels(kept_args(graph, app, k))
+        for name in PRUNED_REPLACES:
+            timing[f"{name}:{kind}"] = rows[name]
+            errs[f"{name}:{kind}"] = errs.get(name, 0)
+        del rows
+        torch.cuda.empty_cache()
+    launches.update(kind_launches)
     profile_warm(g10, make_mc_app(4), "rmat10 4-mc")
+    return errs, {"c3_8": c3, "c4_10": c4_10, "n_chain": n_chain,
+                  "c3_15": c3_15}
+
+
+def kept_args(graph, app, k: int, **miner_kw) -> dict:
+    """The arguments of the first launch at parent width ``k`` of each
+    pruned kernel in cold runs of ``app`` on ``cuda`` (the pair) and
+    ``cuda-1p``."""
+    from repro_torch.core import Miner
+
+    keeper = ArgsKeeper(("extend_count", "extend_scatter"), k=k)
+    with keeper:
+        Miner(graph, app, backend="cuda", **miner_kw).run()
+    with ArgsKeeper(("extend_pruned_1p",), k=k) as keeper_1p:
+        Miner(graph, app, backend="cuda-1p", **miner_kw).run()
+    return {**keeper.kept, **keeper_1p.kept}
+
+
+# ---------------------------------------------------------------------------
+# Partial and core packs: K1's mixed connectivity probe in K2 and K4
+
+
+# The TPU kernel's mixed probe (the select in _tile_enumerate)
+MIXED_PROBE = f"{TPU_KERNEL}:258"
+# A quarter of RMAT-16's full pack (536,870,912 B), the budget of the JAX
+# package's out-of-core row (benchmarks/bench_backends.py, tc-oocore), and
+# the same quarter of RMAT-15's 3-MC pack (134,217,728 B)
+MIXED_BUDGET16 = 134_217_728
+MIXED_BUDGET15 = 33_554_432
+# RMAT-15 3-MC's core pack after relabeling: (rows, columns), hit rate
+MIXED_MC_PACK = ((16384, 16384), 0.972)
+# Per configuration: the Miner options, the same Miner's options with no
+# pack (the run every level is held to), the pack's (rows, columns), and
+# the JAX package's pack_hit_rate at three decimals
+MIXED_CONFIGS = {
+    "core": (dict(relabel=True, pack_max_bytes=MIXED_BUDGET16),
+             dict(relabel=True, pack_max_bytes=0), (32768, 32768), 0.958),
+    "partial": (dict(pack_partial=True, pack_max_bytes=MIXED_BUDGET16),
+                dict(pack_max_bytes=0), (16384, 65536), 0.874)}
+# the mixed instantiations timed and counted: clique at RMAT-16 TC's level 2
+# under each configuration, the branch set at RMAT-15 3-MC's level 2 under
+# the core pack
+MIXED_ROWS = ("clique-mixed-core", "clique-mixed-partial",
+              "branches-mixed-core")
+MIXED_REPLACES = {f"{name}:{row}": MIXED_PROBE for row in MIXED_ROWS
+                  for name in PRUNED_REPLACES}
+
+
+def search_twin(kw: dict) -> dict:
+    """A mixed launch's keyword arguments in search mode."""
+    out = {k: v for k, v in kw.items()
+           if k not in ("row_slot", "n_rows", "n_cols")}
+    return {**out, "conn_mode": "search", "n_words": 1}
+
+
+def time_mixed(kept: dict, label: str) -> dict:
+    """``time_kernels`` on mixed launches' arguments, and beside each the
+    search mode's time and bound on the same arguments, whose buffers must
+    equal the mixed launch's."""
+    rows = time_kernels(kept)
+    for name, (a, kw) in kept.items():
+        wrapper = getattr(wrapper_module(name), name)
+        kw_s = search_twin(kw)
+        ms, got = cuda_ms(lambda: wrapper(*a, **kw_s), reps=10)
+        want = wrapper(*a, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if max_abs_err(got, want):
+            raise AssertionError(f"{label} {name}: search mode's buffers "
+                                 "differ from mixed mode's")
+        bound = bytes_moved(name, a, kw_s) / HBM_BYTES_PER_S * 1e3
+        rows[name]["search_ms"] = ms
+        log(f"[timing] {label} {name}: mixed {rows[name]['ms']:.3f} ms "
+            f"(bound {rows[name]['bound_ms']:.4f}), search {ms:.3f} ms "
+            f"(bound {bound:.4f}) on the same arguments, buffers equal")
+        del got, want
+    return rows
+
+
+def mixed_phase(expected: dict, census: dict, timing: dict,
+                launches: dict) -> dict:
+    """The [mixed] phase: RMAT-16 TC and 4-CF under a core pack (after
+    relabeling) and a partial pack, 3-MC on RMAT-15 under a core pack,
+    every launch checked, then the counted main path with every level held
+    to the same Miner's run without a pack (itself counted and timed, the
+    pair's warm times side by side), the mixed instantiations timed
+    beside search mode; then the other predicates in mixed mode, checked
+    small.  Returns the checks' largest errors by row."""
+    import torch
+    from repro_torch.core import (Miner, Pattern, make_cf_app, make_mc_app,
+                                  make_tc_app, pattern_app)
+    from repro_torch.graph.generators import rmat
+
+    errs: dict = {}
+    row_launches = dict.fromkeys(MIXED_REPLACES, 0)
+    tc_cf = (("tc", make_tc_app()), ("4-cf", make_cf_app(4)))
+
+    def count(instances, row, pred):
+        for (wrapper, kind, mode), n in instances.items():
+            if kind == pred and mode == "mixed":
+                row_launches[f"{wrapper}:{row}"] += n
+
+    def paired(graph, label, app, n, p_map, backend, opts, no_pack, row,
+               pred):
+        # the same Miner without a pack (search mode), then with it (mixed
+        # mode), each counted and timed cold and warm by mc_main; every
+        # level of the mixed run equal to the search run's
+        *_, want = mc_main(graph, f"search {label}", app, n, p_map, backend,
+                           keep_levels=True, mode="search", **no_pack)
+        _, instances, got = mc_main(graph, f"mixed {label}", app, n, p_map,
+                                    backend, keep_levels=True, mode="mixed",
+                                    **opts)
+        n_levels = levels_equal(got, want)
+        log(f"[main] mixed {label} {backend}: levels equal to the run "
+            f"without a pack (vid, idx, state) on {n_levels} levels")
+        count(instances, row, pred)
+        del got, want
+        torch.cuda.empty_cache()
+
+    def check_pack(opts, graph, app, label, rows_cols=None, hit=None):
+        m = Miner(graph, app, backend="cuda", **opts)
+        pg = m.ctx.packed
+        rate = m.pack_hit_rate()
+        log(f"[mixed] {label}: pack {pg.n_packed} rows x {pg.n_words} words "
+            f"({pg.words.numel() * 4} B), n_cols {pg.n_cols}, full "
+            f"{pg.full}, pack_hit_rate {rate}")
+        if pg.full or (rows_cols and (pg.n_packed, pg.n_cols) != rows_cols) \
+                or (hit is not None and round(rate, 3) != hit):
+            raise AssertionError(f"{label}: unexpected pack")
+        del m
+
+    g16 = rmat(16, 16, seed=0)
+    for cfg, (opts, no_pack, rows_cols, hit) in MIXED_CONFIGS.items():
+        t0 = time.perf_counter()
+        check_pack(opts, g16, make_tc_app(), f"rmat16 {cfg} (TC's DAG)",
+                   rows_cols, hit)
+        kept = {}
+        for backend, names in (("cuda", REPLACES),
+                               ("cuda-1p", LOOKBACK_REPLACES)):
+            checks = checked_runs(g16, tc_cf, expected,
+                                  f"rmat16 {cfg} {backend}", keep="tc",
+                                  backend=backend, names=tuple(names),
+                                  **opts)
+            if "mixed" not in checks.modes:
+                raise AssertionError(f"rmat16 {cfg}: modes {checks.modes}")
+            for k, v in checks.err.items():
+                errs[k] = max(errs.get(k, 0), v)
+            kept.update({k: v for k, v in checks.kept.items()
+                         if k in PRUNED_REPLACES})
+            del checks
+        rows = time_mixed(kept, f"rmat16 tc {cfg}")
+        for name in PRUNED_REPLACES:
+            timing[f"{name}:clique-mixed-{cfg}"] = rows[name]
+        del kept, rows
+        torch.cuda.empty_cache()
+        for name, app in tc_cf:
+            for backend in ("cuda", "cuda-1p"):
+                paired(g16, f"rmat16 {cfg} {name}", app, expected[name],
+                       None, backend, opts, no_pack, f"clique-mixed-{cfg}",
+                       "clique")
+        log(f"[mixed] rmat16 {cfg}: {time.perf_counter() - t0:.1f} s")
+    del g16
+    torch.cuda.empty_cache()
+
+    # 3-MC on RMAT-15: the branch set with its state column, core pack
+    g15 = rmat(15, 16, seed=0)
+    c3 = census["c3_15"]
+    opts = dict(relabel=True, pack_max_bytes=MIXED_BUDGET15)
+    check_pack(opts, g15, make_mc_app(3), "rmat15 core", *MIXED_MC_PACK)
+    run = ("3-mc rmat15", make_mc_app(3), sum(c3), c3)
+    for backend in ("cuda", "cuda-1p"):
+        checks = mc_checked(g15, [run], f"mixed 3-mc rmat15 core {backend}",
+                            backend=backend, **opts)
+        if "mixed" not in checks.modes:
+            raise AssertionError(f"3-mc rmat15: modes {checks.modes}")
+        for k, v in checks.err.items():
+            errs[k] = max(errs.get(k, 0), v)
+    for backend in ("cuda", "cuda-1p"):
+        paired(g15, "rmat15 core 3-mc", make_mc_app(3), sum(c3), c3, backend,
+               opts, dict(relabel=True, pack_max_bytes=0),
+               "branches-mixed-core", "branches")
+    rows = time_mixed(kept_args(g15, make_mc_app(3), 2, **opts),
+                      "rmat15 3-mc core")
+    for name in PRUNED_REPLACES:
+        timing[f"{name}:branches-mixed-core"] = rows[name]
+    del g15, rows
+    torch.cuda.empty_cache()
+
+    # every other predicate in mixed mode, under a partial and a core pack
+    # of a quarter of the full pack, checked
+    chain = pattern_app(Pattern.from_edges([(0, 1), (1, 2)],
+                                           labels=[0, 1, 2]))
+    c3_8, c4_10 = census["c3_8"], census["c4_10"]
+    small = [("psm-diamond", rmat(10, 16, seed=0),
+              pattern_app(Pattern.named("diamond")), c4_10[4], None, 32768),
+             ("psm-lchain", rmat(12, 8, seed=0, labels=3), chain,
+              census["n_chain"], None, 524288),
+             ("3-mc memo", rmat(8, 16, seed=0), make_mc_app(3, "memo"),
+              sum(c3_8), c3_8, 2048)]
+    for name, graph, app, n, p_map, budget in small:
+        for pack, opts in (("partial", dict(pack_partial=True)),
+                           ("core", dict(relabel=True))):
+            check_pack({**opts, "pack_max_bytes": budget}, graph, app,
+                       f"{name} {pack}")
+            for backend in ("cuda", "cuda-1p"):
+                checks = mc_checked(graph, [(name, app, n, p_map)],
+                                    f"mixed {name} {pack} {backend}",
+                                    pack_max_bytes=budget, backend=backend,
+                                    **opts)
+                if "mixed" not in checks.modes:
+                    raise AssertionError(f"{name}: modes {checks.modes}")
+    g8 = rmat(8, 16, seed=0)
+    linear = Miner(g8, make_mc_app(3), backend="torch-ref", search="linear")
+    r = linear.run()
+    log(f"[mixed] 3-mc rmat8 torch-ref search=linear: {r.count} "
+        f"{[int(x) for x in r.p_map]}, pack {linear.ctx.packed}")
+    if (r.count, [int(x) for x in r.p_map]) != (sum(c3_8), c3_8) \
+            or linear.ctx.packed is not None:
+        raise AssertionError("search=linear: wrong count or a pack")
+    for name in row_launches:
+        errs[name] = errs.get(name.split(":")[0], 0)
+        if row_launches[name] < 1:
+            raise AssertionError(f"{name}: no launch on the main path")
+    launches.update(row_launches)
     return errs
 
 
@@ -1646,8 +1957,13 @@ def main() -> int:
     # motif counting and compiled patterns: the state, canonical and
     # labeled variants of the pruned kernels
     t_phase = time.perf_counter()
-    mc_errs = mc_phase(timing, launches)
+    mc_errs, census = mc_phase(timing, launches)
     log(f"[mc] phase {time.perf_counter() - t_phase:.1f} s")
+
+    # partial and core packs: K1's mixed probe in K2 and K4
+    t_phase = time.perf_counter()
+    mixed_errs = mixed_phase(expected, census, timing, launches)
+    log(f"[mixed] phase {time.perf_counter() - t_phase:.1f} s")
 
     # LM serving: every flash-attention launch of sets A and B checked,
     # the kernel timed on set A's layer 0, the counted sets, then f32
@@ -1673,11 +1989,12 @@ def main() -> int:
     kernels = []
     errs = {**checks16.err, **checks15.err, **checks_tc.err, **checks_1p.err,
             **checks_lm.err, "sorted_segment_sum": seg_err}
-    for name, err in mc_errs.items():
+    for name, err in {**mc_errs, **mixed_errs}.items():
         errs[name] = max(errs.get(name, 0), err)
     for name, replaces in {**REPLACES, **EDGE_REPLACES, **LOOKBACK_REPLACES,
-                           **MC_REPLACES, **INTERSECT_REPLACES,
-                           **FLASH_REPLACES, **SEGSUM_REPLACES}.items():
+                           **MC_REPLACES, **MIXED_REPLACES,
+                           **INTERSECT_REPLACES, **FLASH_REPLACES,
+                           **SEGSUM_REPLACES}.items():
         t = timing[name]
         module = wrapper_module(name.split(":")[0])
         kernels.append({

@@ -46,8 +46,9 @@ class GraphCtx:
     n_vertices: int
     n_edges: int
     n_steps: int                   # binary search depth, ceil log2 max degree
-    packed: Optional[PackedGraph] = None   # full bit-packed adjacency
+    packed: Optional[PackedGraph] = None   # bit-packed adjacency, or None
     n_labels: int = 1
+    search: str = "binary"         # "binary" | "linear" (Fig. 13b ablation)
     # edge-induced support: undirected edge ids
     edge_uid: Optional[torch.Tensor] = None   # int32[m] uid per directed edge
     usrc: Optional[torch.Tensor] = None       # int32[m/2] endpoints per uid
@@ -59,33 +60,58 @@ class GraphCtx:
         return self.row_ptr.device
 
     def is_connected(self, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        """Listing 2 ``isConnected``: is v in N(u)?  One bit test with the
-        full pack, else a CSR binary search."""
-        if self.packed is not None:
-            if not self.packed.full:
-                raise NotImplementedError("partial packs are not ported yet")
-            return packed_contains(self.packed, u, v)
-        return adj_contains(self.row_ptr, self.col_idx, u, v, self.n_steps)
+        """Listing 2 ``isConnected``: is v in N(u)?
+
+        One bit test with the full pack.  With a partial or core pack,
+        packed rows (and, for a core pack, columns below ``n_cols``)
+        answer from the bitmap and the rest search the CSR, both computed
+        and one selected per lane.  With no pack, or under
+        ``search="linear"``, the CSR alone.
+        """
+        if self.packed is not None and self.search == "binary":
+            pg = self.packed
+            hit = packed_contains(pg, u, v)
+            if pg.full:
+                return hit
+            slot = pg.row_slot[u.clamp(0, self.n_vertices - 1).long()]
+            use_bitmap = slot >= 0
+            if pg.n_cols < self.n_vertices:
+                # a core pack covers only the columns below n_cols
+                use_bitmap = use_bitmap & (v < pg.n_cols)
+            fallback = adj_contains(self.row_ptr, self.col_idx, u, v,
+                                    self.n_steps, method=self.search)
+            return torch.where(use_bitmap, hit, fallback)
+        return adj_contains(self.row_ptr, self.col_idx, u, v, self.n_steps,
+                            method=self.search)
 
     def degree(self, v: torch.Tensor) -> torch.Tensor:
         v = v.clamp(0, self.n_vertices - 1).long()
         return self.row_ptr[v + 1] - self.row_ptr[v]
 
 
-def make_ctx(g: CSRGraph, pack_max_bytes: int = 4 << 20,
-             with_edge_uids: bool = False) -> GraphCtx:
-    """GraphCtx from a CSR graph (host-side preprocessing).
+def make_ctx(g: CSRGraph, search: str = "binary",
+             n_labels: Optional[int] = None, with_edge_uids: bool = False,
+             pack_bits: bool = True, pack_max_bytes: int = 4 << 20,
+             pack_partial: bool = False, pack_core: bool = False) -> GraphCtx:
+    """GraphCtx from a CSR graph (host-side preprocessing; the gating of
+    the JAX package's ``make_ctx``).
 
-    Attaches the full bit-packed adjacency when every row fits under
-    ``pack_max_bytes``, and no pack otherwise (connectivity then binary
-    searches the CSR; ``pack_max_bytes=0`` forces that) — the JAX default.
-    The opt-in partial and core packs are not ported yet.
+    ``pack_bits`` attaches the bit-packed adjacency, never under
+    ``search="linear"`` (the ablation measures the CSR scan).  By default
+    only a full pack is attached, when every row fits ``pack_max_bytes``
+    (``pack_max_bytes=0`` forces the CSR search).  Over budget,
+    ``pack_partial`` asks for the partial pack of the highest-degree rows
+    and ``pack_core`` for the square core pack (``Miner(relabel=True)``
+    asks for it); no pack is built that would be dropped.
     ``with_edge_uids`` builds the undirected edge-id table of the
     edge-induced pipeline, on the host with int64 keys, as JAX does.
     """
+    if search not in ("binary", "linear"):
+        raise ValueError(f"search {search!r} not in ('binary', 'linear')")
     n_steps = max(1, math.ceil(math.log2(max(g.max_degree, 1) + 1)))
-    n_labels = (int(g.labels.max().item()) + 1
-                if g.labels is not None and g.n_vertices else 1)
+    if n_labels is None:
+        n_labels = (int(g.labels.max().item()) + 1
+                    if g.labels is not None and g.n_vertices else 1)
     edge_uid = usrc = udst = None
     n_uedges = 0
     if with_edge_uids:
@@ -102,13 +128,17 @@ def make_ctx(g: CSRGraph, pack_max_bytes: int = 4 << 20,
             dev)
         n_uedges = int(uniq.shape[0])
     packed = None
-    n_words = -(-max(g.n_vertices, 1) // 32)
-    if g.n_vertices * n_words * 4 <= pack_max_bytes:
-        packed = pack_adjacency(g, max_bytes=pack_max_bytes)
+    if pack_bits and search == "binary":
+        n_words = -(-max(g.n_vertices, 1) // 32)
+        would_be_full = g.n_vertices * n_words * 4 <= pack_max_bytes
+        if would_be_full or pack_partial or pack_core:
+            # never build a pack we'd drop
+            packed = pack_adjacency(g, max_bytes=pack_max_bytes,
+                                    core=pack_core and not would_be_full)
     return GraphCtx(row_ptr=g.row_ptr, col_idx=g.col_idx, labels=g.labels,
                     n_vertices=g.n_vertices, n_edges=g.n_edges,
                     n_steps=n_steps, packed=packed, n_labels=n_labels,
-                    edge_uid=edge_uid, usrc=usrc, udst=udst,
+                    search=search, edge_uid=edge_uid, usrc=usrc, udst=udst,
                     n_uedges=n_uedges)
 
 

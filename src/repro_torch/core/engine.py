@@ -36,7 +36,9 @@ from repro_torch.core.phases import BackendSpec, get_backend
 from repro_torch.core.phases.reference import INT_MAX
 from repro_torch.core.plan import HostCapPolicy, MiningExecutor, bucket_pow2
 from repro_torch.device import DeviceSpec, resolve_device
-from repro_torch.graph.csr import CSRGraph
+from repro_torch.graph.csr import CSRGraph, Relabeling
+from repro_torch.graph.csr import pack_hit_rate as _pack_hit_rate
+from repro_torch.graph.csr import relabel as relabel_graph
 from repro_torch.graph.dag import orient_dag
 
 
@@ -334,20 +336,43 @@ class Miner:
     ``backend=None`` is the app's preferred backend, and else the ``cuda``
     backend.  A vertex app with ``needs_reduce`` (or a ``get_pattern``)
     returns its per-pattern counts as ``MineResult.p_map``.
+
+    The layout options are the JAX package's: ``search="linear"`` is the
+    CSR-scan ablation (no pack); ``pack_partial=True`` packs the
+    highest-degree rows when the full pack does not fit
+    ``pack_max_bytes``; ``relabel=True`` (or an order name) relabels the
+    graph by degree before the DAG orientation, and then, unless
+    ``pack_core`` says otherwise, packs the square core.  Results are
+    unchanged by all of them.
     """
 
     def __init__(self, graph: CSRGraph, app: MiningApp,
-                 fuse_filter: bool = True, backend: BackendSpec = None,
-                 pack_max_bytes: int = 4 << 20, device: DeviceSpec = None):
+                 search: str = "binary", fuse_filter: bool = True,
+                 backend: BackendSpec = None, pack_max_bytes: int = 4 << 20,
+                 pack_partial: bool = False, relabel: bool | str = False,
+                 pack_core: Optional[bool] = None,
+                 device: DeviceSpec = None):
         self.device = resolve_device(device)
         self.app = app
         self.backend = get_backend(backend if backend is not None
                                    else app.backend)
         graph = graph.to(self.device)
+        # relabel before the DAG orientation, so the oriented CSR, the pack
+        # and the level-0 worklist all live in the permuted id space
+        self.relabeling: Optional[Relabeling] = None
+        if relabel:
+            order = "degree" if relabel is True else str(relabel)
+            self.relabeling = relabel_graph(graph, order=order)
+            graph = self.relabeling.graph
+        self.graph_in = graph
         g = orient_dag(graph) if app.use_dag else graph
         self.graph = g
-        self.ctx = make_ctx(g, pack_max_bytes=pack_max_bytes,
-                            with_edge_uids=(app.kind == "edge"))
+        if pack_core is None:       # the core pack pays off once relabeled
+            pack_core = self.relabeling is not None
+        self.ctx = make_ctx(g, search=search,
+                            with_edge_uids=(app.kind == "edge"),
+                            pack_max_bytes=pack_max_bytes,
+                            pack_partial=pack_partial, pack_core=pack_core)
         self.fuse_filter = fuse_filter
         self.ops = _PhaseOps(self.ctx, app, self.backend,
                              fuse_filter=fuse_filter)
@@ -367,6 +392,13 @@ class Miner:
                 h.update(self.graph.labels.cpu().numpy().tobytes())
             self._digest = h.hexdigest()[:16]
         return self._digest
+
+    def pack_hit_rate(self) -> Optional[float]:
+        """Degree-weighted probability that a connectivity probe answers
+        from the packed bitmap (None when no pack was built)."""
+        if self.ctx.packed is None:
+            return None
+        return _pack_hit_rate(self.graph, self.ctx.packed)
 
     def executor(self, cap0: int) -> MiningExecutor:
         """The (cached) executor for level-0 capacity ``cap0``."""

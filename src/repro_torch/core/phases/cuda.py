@@ -24,13 +24,16 @@ of ``repro.core.phases.pallas``: ``cuda`` under the ``pallas-mp`` contract,
 * The reduces are the plain backend's PyTorch, on the device with no host
   read (JAX computes them outside Pallas too).
 
-Connectivity is probed from the full bit-packed adjacency when the graph
-has one (``bitmap``) and by CSR binary search otherwise (``search``).
-What the kernels cannot express raises NotImplementedError instead of
-running plain PyTorch: a vertex app without a predicate spec, a state
-update other than a branch set's own bitmap, ``fuse_filter=False``, a
-partial or core pack, an edge app with a general batch ``to_add`` and no
-per-vertex mask.
+The pruned kernels probe connectivity as the ``pallas`` backend does: from
+the full bit-packed adjacency when the graph has one (``bitmap``), from a
+partial or core pack with the CSR search for what it does not cover
+(``mixed``), and by CSR binary search otherwise (``search``).
+``fuse_filter=False`` (the materialise-then-filter ablation) runs the base
+class's unfused path: the inspection kernel, the spec in PyTorch, then the
+full candidate list filtered.  What the kernels cannot express raises
+NotImplementedError instead of running plain PyTorch: a vertex app without
+a predicate spec, a state update other than a branch set's own bitmap, an
+edge app with a general batch ``to_add`` and no per-vertex mask.
 
 On CPU tensors the kernel wrappers run their plain versions, which is how
 the tests drive this backend without a card.
@@ -183,34 +186,45 @@ class CudaBackend(ReferenceBackend):
                       for j in range(k))) & live
         return row, u, src_slot, add, total
 
+    @staticmethod
+    def _pack_args(ctx: GraphCtx, device) -> dict:
+        """The probe mode and pack arguments of the pruned kernels (as
+        ``repro.core.phases.pallas`` picks them): full pack -> bitmap,
+        partial or core pack -> mixed, no pack -> search."""
+        pg = ctx.packed
+        if pg is None:
+            return dict(conn_mode="search", n_words=1, bits=torch.zeros(
+                1, dtype=torch.int32, device=device))
+        if pg.full:
+            return dict(conn_mode="bitmap", n_words=pg.n_words,
+                        bits=pg.words.reshape(-1))
+        return dict(conn_mode="mixed", n_words=pg.n_words,
+                    bits=pg.words.reshape(-1), row_slot=pg.row_slot,
+                    n_rows=pg.n_packed, n_cols=pg.n_cols)
+
     def extend_pruned(self, ctx: GraphCtx, app: MiningApp, emb: torch.Tensor,
                       n_valid: torch.Tensor, state, cand_cap: int,
                       out_cap: int, fuse_filter: bool = True):
         if not fuse_filter:
-            raise NotImplementedError("the cuda backend fuses the filter; "
-                                      "fuse_filter=False is not ported")
+            # the ablation: K3 enumerates, then the spec and the filter run
+            # over the materialised candidate list
+            return super().extend_pruned(ctx, app, emb, n_valid, state,
+                                         cand_cap, out_cap,
+                                         fuse_filter=False)
         check_cand_cap(cand_cap)
         emb, state = _pad_empty_frontier(emb, state)
         cap, k = emb.shape
         spec = self._spec(app, k)
         offsets, starts, vlo, vhi, total = self._kernel_inputs(
             ctx, app, emb, n_valid, state)
-        pg = ctx.packed
-        if pg is None:
-            conn_mode, n_words = "search", 1
-            bits = torch.zeros(1, dtype=torch.int32, device=emb.device)
-        elif pg.full:
-            conn_mode, n_words = "bitmap", pg.n_words
-            bits = pg.words.reshape(-1)
-        else:
-            raise NotImplementedError("mixed connectivity (partial or core "
-                                      "pack) is not ported yet")
+        pack = self._pack_args(ctx, emb.device)
+        bits = pack.pop("bits")
         st, lab = self._state_labels(ctx, spec, state, cap)
         out = getattr(ops, self._pruned_kernel)(
             _col_idx(ctx), offsets, starts, emb.reshape(-1).contiguous(),
             vlo, vhi, bits, k=k, cand_cap=cand_cap, out_cap=out_cap,
-            n_steps=ctx.n_steps, n_vertices=ctx.n_vertices, n_words=n_words,
-            spec=spec, conn_mode=conn_mode, state=st, labels=lab)
+            n_steps=ctx.n_steps, n_vertices=ctx.n_vertices, spec=spec,
+            state=st, labels=lab, **pack)
         row, u = out[0], out[1]
         n_surv = out[3] if spec.writes_state else out[2]
         # a branch set's bitmap is the new state where the app updates it

@@ -22,7 +22,7 @@
 // memory-latency bound.  Per candidate slot a thread runs a binary search of
 // the parent prefix sum (log2 of cap*k dependent loads), one CSR gather, and
 // up to k connectivity probes (a binary search of a CSR row, or one word of
-// the bit-packed adjacency).  The compulsory traffic is the parent tables
+// the bit-packed adjacency; see the probe modes below).  The compulsory traffic is the parent tables
 // (5 x 4 B per parent slot), col_idx (3.6 MB at RMAT-16, which stays in the
 // 50 MB L2) and the outputs: 16 B per slot for extend_candidates, 4 B per
 // tile for extend_count, 8 B per survivor for extend_scatter.  The simple
@@ -72,6 +72,20 @@
 // KB of the 4 KB); every lane reads the same entry, so the reads are
 // constant-bank broadcasts.
 //
+// K1 probes connectivity in one of three modes (conn_mode, a template
+// parameter of every pruned kernel, so each mode compiles to its own code):
+//   search  a binary search of the parent's CSR row;
+//   bitmap  the full pack: one word of row ev, rows indexed by vertex id;
+//   mixed   a partial or core pack (port of extend.py:244-267): the parent
+//           vertex's row is row_slot[ev]; a packed row, and for a core pack
+//           (n_cols < n_vertices) a candidate below n_cols, answers from
+//           word row * n_words + (u >> 5) (64-bit index); anything else
+//           searches the CSR as in search mode.  The TPU kernel evaluates
+//           both and selects per lane; here the lane branches, since either
+//           branch gives the same answer.  The row_slot gather adds one
+//           dependent load (4 B per parent slot, from L1/L2) before each
+//           probe; a hit saves the search's log2(degree) dependent loads.
+//
 // extend_edge writes five int32 outputs per candidate slot (20 B), which is
 // its compulsory traffic and its bound: the parent tables are 16 B per slot
 // parent, and the row's E edge uids and their endpoints are read per slot
@@ -80,6 +94,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -139,13 +155,45 @@ __device__ __forceinline__ bool csr_contains(const int* __restrict__ col,
   return lo < hi && l < hi && __ldg(col + l) == u;
 }
 
-// Bit u of row `row` of the full bit-packed adjacency (extend.py:246-250).
+// Bit u of packed row `row`, u clamped to the row's n_cols columns
+// (extend.py:246-250).
 __device__ __forceinline__ bool bitmap_contains(const uint32_t* __restrict__ bits,
-                                                int n_words, int n_vertices,
+                                                int n_words, int n_cols,
                                                 int row, int u) {
-  int ub = clampi(u, 0, n_vertices - 1);
+  int ub = clampi(u, 0, n_cols - 1);
   uint32_t w = __ldg(bits + (long long)row * n_words + (ub >> 5));
   return (w >> (ub & 31)) & 1u;
+}
+
+// The probe modes (conn_mode in ops.py).
+enum Mode { kSearch = 0, kBitmap = 1, kMixed = 2 };
+
+// The bit-packed adjacency as K1 reads it.  In bitmap mode row v is vertex
+// v's; in mixed mode row_slot maps a vertex to its row (-1: not packed),
+// and each of the n_rows rows covers the columns below n_cols.
+struct Pack {
+  const uint32_t* bits;
+  const int* row_slot;
+  int n_words;
+  int n_vertices;
+  int n_rows;
+  int n_cols;
+};
+
+// Is u adjacent to the parent slot at flat index pj, whose vertex ev >= 0?
+template <int M>
+__device__ __forceinline__ bool probe(const Tables& t, const Pack& pk, int pj,
+                                      int ev, int u) {
+  if (M == kBitmap)
+    return bitmap_contains(pk.bits, pk.n_words, pk.n_vertices,
+                           clampi(ev, 0, pk.n_vertices - 1), u);
+  if (M == kMixed) {
+    int r = __ldg(pk.row_slot + clampi(ev, 0, pk.n_vertices - 1));
+    if (r >= 0 && (pk.n_cols == pk.n_vertices || u < pk.n_cols))
+      return bitmap_contains(pk.bits, pk.n_words, pk.n_cols,
+                             r < pk.n_rows ? r : pk.n_rows - 1, u);
+  }
+  return csr_contains(t.col, t.vlo[pj], t.vhi[pj], u);
 }
 
 struct Cand {
@@ -311,23 +359,18 @@ struct BranchPred {
 
 // K1, the shared stage of all pruned kernels (port of _tile_enumerate):
 // parent search, CSR gather, then the predicate with its connectivity
-// probes, for one live slot.  Every pass calls this one function, so pass
-// 2 replays pass 1.
-template <class P>
+// probes in mode M, for one live slot.  Every pass calls this one
+// function, so pass 2 replays pass 1.
+template <int M, class P>
 __device__ __forceinline__ Cand enumerate_slot(const Tables& t, int slot,
-                                               const uint32_t* __restrict__ bits,
-                                               int use_bitmap, int n_words,
-                                               int n_vertices, const P& pred) {
+                                               const Pack& pk, const P& pred) {
   int p = parent_of(t.offsets, t.n_parents, slot);
   int row = p / t.k;
   int src_slot = p - row * t.k;
   int ptr = clampi(t.vlo[p] + (slot - t.starts[p]), 0, t.m - 1);
   int u = __ldg(t.col + ptr);
   auto conn = [&](int pj, int ev) -> bool {
-    return ev >= 0 && (use_bitmap
-        ? bitmap_contains(bits, n_words, n_vertices,
-                          clampi(ev, 0, n_vertices - 1), u)
-        : csr_contains(t.col, t.vlo[pj], t.vhi[pj], u));
+    return ev >= 0 && probe<M>(t, pk, pj, ev, u);
   };
   return pred.eval(t, row, src_slot, u, conn);
 }
@@ -355,17 +398,15 @@ extend_candidates_kernel(Tables t, int cand_cap, int* __restrict__ row_out,
   conn_out[slot] = conn;
 }
 
-template <class P>
+template <int M, class P>
 __global__ void __launch_bounds__(kTile)
-extend_count_kernel(Tables t, int cand_cap, const uint32_t* __restrict__ bits,
-                    int use_bitmap, int n_words, int n_vertices, P pred,
+extend_count_kernel(Tables t, int cand_cap, Pack pk, P pred,
                     int* __restrict__ counts) {
   int slot = blockIdx.x * kTile + threadIdx.x;
   int total = t.offsets[t.n_parents - 1];
   bool keep = false;
   if (slot < cand_cap && slot < total)
-    keep = enumerate_slot(t, slot, bits, use_bitmap, n_words, n_vertices,
-                          pred).keep;
+    keep = enumerate_slot<M>(t, slot, pk, pred).keep;
   int cnt = __syncthreads_count(keep);
   if (threadIdx.x == 0) counts[blockIdx.x] = cnt;
 }
@@ -397,10 +438,9 @@ __device__ __forceinline__ int tile_rank(bool keep, int* warp_base,
   return warp_base[warp] + __popc(ballot & ((1u << lane) - 1u));
 }
 
-template <class P>
+template <int M, class P>
 __global__ void __launch_bounds__(kTile)
-extend_scatter_kernel(Tables t, int cand_cap, const uint32_t* __restrict__ bits,
-                      int use_bitmap, int n_words, int n_vertices, P pred,
+extend_scatter_kernel(Tables t, int cand_cap, Pack pk, P pred,
                       const int* __restrict__ bases, int out_cap,
                       int* __restrict__ row_out, int* __restrict__ u_out,
                       int* __restrict__ state_out) {
@@ -409,7 +449,7 @@ extend_scatter_kernel(Tables t, int cand_cap, const uint32_t* __restrict__ bits,
   int total = t.offsets[t.n_parents - 1];
   Cand c{0, -1, false, 0};
   if (slot < cand_cap && slot < total)
-    c = enumerate_slot(t, slot, bits, use_bitmap, n_words, n_vertices, pred);
+    c = enumerate_slot<M>(t, slot, pk, pred);
   int count;
   int r = tile_rank(c.keep, warp_base, &count);
   if (c.keep) {
@@ -488,11 +528,9 @@ __device__ int lookback(unsigned long long* status, int tile, int count) {
 // total (which may exceed out_cap: writes at dest >= out_cap are dropped,
 // as in the pair).  `status` (n_tiles words) and `ticket` are zero at
 // launch.
-template <class P>
+template <int M, class P>
 __global__ void __launch_bounds__(kTile)
-extend_pruned_1p_kernel(Tables t, int cand_cap,
-                        const uint32_t* __restrict__ bits, int use_bitmap,
-                        int n_words, int n_vertices, P pred, int out_cap,
+extend_pruned_1p_kernel(Tables t, int cand_cap, Pack pk, P pred, int out_cap,
                         unsigned long long* status, unsigned int* ticket,
                         int* __restrict__ row_out, int* __restrict__ u_out,
                         int* __restrict__ state_out,
@@ -511,8 +549,7 @@ extend_pruned_1p_kernel(Tables t, int cand_cap,
     int slot = (tile * kItems1p + j) * kTile + threadIdx.x;
     c[j] = Cand{0, -1, false, 0};
     if (slot < cand_cap && slot < total)
-      c[j] = enumerate_slot(t, slot, bits, use_bitmap, n_words, n_vertices,
-                            pred);
+      c[j] = enumerate_slot<M>(t, slot, pk, pred);
     int n;
     rank[j] = count + tile_rank(c[j].keep, warp_base[j & 1], &n);
     count += n;
@@ -623,6 +660,32 @@ Tables make_tables(const int* offsets, const int* starts, const int* emb,
   return Tables{offsets, starts, emb, vlo, vhi, col, n_parents, m, k};
 }
 
+// Whether `mode` is a probe mode and `pk` the pack it reads: bitmap needs
+// the words; mixed also the vertex -> row map, 1 <= n_rows and
+// 1 <= n_cols <= n_vertices with n_words covering n_cols.  Checked before
+// any launch.
+cudaError_t check_pack(int mode, const Pack& pk) {
+  if (mode == kSearch) return cudaSuccess;
+  if (mode != kBitmap && mode != kMixed) return cudaErrorInvalidValue;
+  if (pk.bits == nullptr || pk.n_vertices < 1 || pk.n_words < 1)
+    return cudaErrorInvalidValue;
+  if (mode == kMixed
+      && (pk.row_slot == nullptr || pk.n_rows < 1 || pk.n_cols < 1
+          || pk.n_cols > pk.n_vertices
+          || (long long)pk.n_words * 32 < pk.n_cols))
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// Call launch(std::integral_constant<int, mode>{}) for a checked mode, so
+// each mode is its own instantiation.
+template <class F>
+void with_mode(int mode, F&& launch) {
+  if (mode == kBitmap) launch(std::integral_constant<int, kBitmap>{});
+  else if (mode == kMixed) launch(std::integral_constant<int, kMixed>{});
+  else launch(std::integral_constant<int, kSearch>{});
+}
+
 // Build the predicate a spec's host words describe (PredicateSpec.words(),
 // CanonicalSpec.words(), BranchSetSpec.words() in repro_torch/core/api.py)
 // and call launch(pred).  Words: kind, labeled, then for a conjunction
@@ -693,54 +756,59 @@ int extend_candidates(const int* offsets, const int* starts, const int* emb,
   return static_cast<int>(cudaGetLastError());
 }
 
-int extend_count(const int* offsets, const int* starts, const int* emb,
-                 const int* vlo, const int* vhi, const int* col,
-                 const uint32_t* bits, const int* state, const int* labels,
-                 int n_parents, int m, int k, int cand_cap, int use_bitmap,
-                 int n_words, int n_vertices, int n_labels, const int* spec,
-                 int n_spec, int* counts, void* stream) {
+// The pruned entry points share their leading arguments: the parent
+// tables and CSR, the pack (bits, row_slot), the state and labels, the
+// sizes, the probe mode (kSearch, kBitmap, kMixed) with the pack's shape,
+// and the spec's words.
+#define PRUNED_PARAMS                                                       \
+    const int *offsets, const int *starts, const int *emb, const int *vlo,  \
+    const int *vhi, const int *col, const uint32_t *bits,                   \
+    const int *row_slot, const int *state, const int *labels,               \
+    int n_parents, int m, int k, int cand_cap, int conn_mode, int n_words,  \
+    int n_vertices, int n_rows, int n_cols, int n_labels, const int *spec,  \
+    int n_spec
+
+int extend_count(PRUNED_PARAMS, int* counts, void* stream) {
   Tables t = make_tables(offsets, starts, emb, vlo, vhi, col, n_parents, m, k);
+  Pack pk{bits, row_slot, n_words, n_vertices, n_rows, n_cols};
+  if (cudaError_t e = check_pack(conn_mode, pk)) return static_cast<int>(e);
   int n_tiles = (cand_cap + kTile - 1) / kTile;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(with_pred(
       spec, n_spec, state, labels, n_labels, n_parents / k, [&](auto pred) {
-        extend_count_kernel<<<n_tiles, kTile, 0, st>>>(
-            t, cand_cap, bits, use_bitmap, n_words, n_vertices, pred,
-            counts);
+        with_mode(conn_mode, [&](auto mode) {
+          extend_count_kernel<decltype(mode)::value>
+              <<<n_tiles, kTile, 0, st>>>(t, cand_cap, pk, pred, counts);
+        });
       }));
 }
 
-int extend_scatter(const int* offsets, const int* starts, const int* emb,
-                   const int* vlo, const int* vhi, const int* col,
-                   const uint32_t* bits, const int* state, const int* labels,
-                   int n_parents, int m, int k, int cand_cap, int use_bitmap,
-                   int n_words, int n_vertices, int n_labels, const int* spec,
-                   int n_spec, const int* bases, int out_cap, int* row,
+int extend_scatter(PRUNED_PARAMS, const int* bases, int out_cap, int* row,
                    int* u, int* state_out, void* stream) {
   Tables t = make_tables(offsets, starts, emb, vlo, vhi, col, n_parents, m, k);
+  Pack pk{bits, row_slot, n_words, n_vertices, n_rows, n_cols};
+  if (cudaError_t e = check_pack(conn_mode, pk)) return static_cast<int>(e);
   int n_tiles = (cand_cap + kTile - 1) / kTile;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_spec > 0 && spec[0] == kBranches && state_out == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(with_pred(
       spec, n_spec, state, labels, n_labels, n_parents / k, [&](auto pred) {
-        extend_scatter_kernel<<<n_tiles, kTile, 0, st>>>(
-            t, cand_cap, bits, use_bitmap, n_words, n_vertices, pred, bases,
-            out_cap, row, u, state_out);
+        with_mode(conn_mode, [&](auto mode) {
+          extend_scatter_kernel<decltype(mode)::value>
+              <<<n_tiles, kTile, 0, st>>>(t, cand_cap, pk, pred, bases,
+                                          out_cap, row, u, state_out);
+        });
       }));
 }
 
-int extend_pruned_1p(const int* offsets, const int* starts, const int* emb,
-                     const int* vlo, const int* vhi, const int* col,
-                     const uint32_t* bits, const int* state,
-                     const int* labels, int n_parents, int m, int k,
-                     int cand_cap, int use_bitmap, int n_words,
-                     int n_vertices, int n_labels, const int* spec,
-                     int n_spec, int out_cap, void* scratch, int* row,
+int extend_pruned_1p(PRUNED_PARAMS, int out_cap, void* scratch, int* row,
                      int* u, int* state_out, int* n_surv, void* stream) {
   // scratch: n_tiles status words, then the ticket; both must start at
   // zero, or a stale status from the last launch corrupts the bases
   Tables t = make_tables(offsets, starts, emb, vlo, vhi, col, n_parents, m, k);
+  Pack pk{bits, row_slot, n_words, n_vertices, n_rows, n_cols};
+  if (cudaError_t e = check_pack(conn_mode, pk)) return static_cast<int>(e);
   int n_tiles = (cand_cap + kTile * kItems1p - 1) / (kTile * kItems1p);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_spec > 0 && spec[0] == kBranches && state_out == nullptr)
@@ -751,11 +819,16 @@ int extend_pruned_1p(const int* offsets, const int* starts, const int* emb,
   unsigned int* ticket = reinterpret_cast<unsigned int*>(status + n_tiles);
   return static_cast<int>(with_pred(
       spec, n_spec, state, labels, n_labels, n_parents / k, [&](auto pred) {
-        extend_pruned_1p_kernel<<<n_tiles, kTile, 0, st>>>(
-            t, cand_cap, bits, use_bitmap, n_words, n_vertices, pred,
-            out_cap, status, ticket, row, u, state_out, n_surv);
+        with_mode(conn_mode, [&](auto mode) {
+          extend_pruned_1p_kernel<decltype(mode)::value>
+              <<<n_tiles, kTile, 0, st>>>(t, cand_cap, pk, pred, out_cap,
+                                          status, ticket, row, u, state_out,
+                                          n_surv);
+        });
       }));
 }
+
+#undef PRUNED_PARAMS
 
 int extend_edge(const int* offsets, const int* starts, const int* slots,
                 const int* vlo, const int* col, const int* edge_uid,

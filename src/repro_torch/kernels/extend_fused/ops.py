@@ -9,13 +9,23 @@ run can show that its path went through the kernels; ``VARIANT_LAUNCHES``
 counts the pruned kernels' launches by the kind of spec they evaluated
 (``clique``, ``conjunction``, ``canonical``, ``branches``), by whether it
 read labels (``labeled``), and by whether it read the state column
-(``state``).
+(``state``); ``INSTANCE_LAUNCHES`` counts them by the template
+instantiation that ran, ``(wrapper, spec kind, mode)``, and
+``mode_launches()`` sums those by connectivity probe mode (``search``,
+``bitmap``, ``mixed``).
+
+The pruned kernels take the probe mode as ``conn_mode``: "search" (CSR
+binary search; ``bits`` unused), "bitmap" (``bits`` holds the full pack,
+row v for vertex v) or "mixed" (a partial or core pack: ``row_slot``, int32
+[n_vertices], maps a vertex to its row of ``bits`` or -1, ``n_rows`` rows
+each covering the columns below ``n_cols``).
 
 The library is built (``repro_torch.kernels.build``) and loaded at the
 first launch, never at import.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from pathlib import Path
@@ -40,6 +50,13 @@ LAUNCHES = dict.fromkeys(("extend_candidates", "extend_count",
 VARIANT_LAUNCHES = dict.fromkeys(("clique", "conjunction", "canonical",
                                   "branches", "labeled", "state"), 0)
 
+# Connectivity probe modes, by the C side's numbering.
+CONN_MODES = {"search": 0, "bitmap": 1, "mixed": 2}
+
+# Pruned-kernel launches by (wrapper, predicate, probe mode), the predicate
+# a spec kind or "labeled" (a labeled conjunction).
+INSTANCE_LAUNCHES: collections.Counter = collections.Counter()
+
 # Vertex slots per edge-induced embedding the edge kernel is built for
 # (E + 1 for E = 1 .. 7 edges), as the JAX package's MAX_EDGE_SLOTS.
 MAX_EDGE_SLOTS = 8
@@ -49,7 +66,7 @@ MAX_EDGE_SLOTS = 8
 def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     lib.extend_candidates.argtypes = [_P] * 6 + [_I] * 4 + [_P] * 5
-    pruned = [_P] * 9 + [_I] * 8 + [_P, _I]
+    pruned = [_P] * 10 + [_I] * 10 + [_P, _I]
     lib.extend_count.argtypes = pruned + [_P] * 2
     lib.extend_scatter.argtypes = pruned + [_P, _I] + [_P] * 4
     lib.extend_edge.argtypes = [_P] * 10 + [_I] * 6 + [_P] * 6
@@ -105,20 +122,49 @@ def extend_candidates(col_idx, offsets, starts, emb_flat, vlo, vhi, *,
 
 
 
+def _check_pack(name, bits, conn_mode, n_vertices, n_words, row_slot,
+                n_rows, n_cols):
+    """The pack a probe mode reads: the full pack's ``n_vertices`` rows for
+    bitmap; for mixed a ``row_slot`` of ``n_vertices`` entries on the
+    device, ``n_rows`` rows of ``n_words`` words in ``bits``, and
+    ``1 <= n_cols <= n_vertices`` columns that ``n_words`` covers.  Search
+    and bitmap take no ``row_slot``."""
+    if conn_mode not in CONN_MODES:
+        raise ValueError(f"{name}: conn_mode {conn_mode!r} not in "
+                         f"{tuple(CONN_MODES)}")
+    if conn_mode != "mixed":
+        if row_slot is not None or n_rows is not None or n_cols is not None:
+            raise ValueError(f"{name}: row_slot, n_rows and n_cols are the "
+                             "mixed mode's")
+        if conn_mode == "bitmap" and bits.shape[0] < n_vertices * n_words:
+            raise ValueError(f"{name}: bitmap mode needs the full pack "
+                             f"({n_vertices} x {n_words} words)")
+        return
+    if row_slot is None or n_rows is None or n_cols is None:
+        raise ValueError(f"{name}: mixed mode reads row_slot, n_rows and "
+                         "n_cols")
+    check_int32(name, row_slot=row_slot, bits=bits)
+    if row_slot.shape[0] != n_vertices:
+        raise ValueError(f"{name}: row_slot has {row_slot.shape[0]} entries, "
+                         f"not n_vertices={n_vertices}")
+    if not 1 <= n_cols <= n_vertices or n_words * 32 < n_cols:
+        raise ValueError(f"{name}: n_cols={n_cols} for {n_vertices} "
+                         f"vertices and {n_words} words a row")
+    if n_rows < 1 or bits.shape[0] < n_rows * n_words:
+        raise ValueError(f"{name}: mixed mode needs {n_rows} x {n_words} "
+                         f"words, bits has {bits.shape[0]}")
+
+
 def _pruned_args(name, col_idx, offsets, starts, emb_flat, vlo, vhi, bits,
                  k, cand_cap, n_vertices, n_words, spec, conn_mode, state,
-                 labels):
+                 labels, row_slot, n_rows, n_cols):
     dev = check_int32(name, col_idx=col_idx, offsets=offsets, starts=starts,
                       emb_flat=emb_flat, vlo=vlo, vhi=vhi, bits=bits)
     _check_parents(name, offsets, starts, emb_flat, vlo, vhi, k)
     if not 1 <= cand_cap <= 1 << 30:
         raise ValueError(f"{name}: cand_cap={cand_cap}")
-    if conn_mode not in ("bitmap", "search"):
-        raise ValueError(f"{name}: conn_mode {conn_mode!r} not in "
-                         "('bitmap', 'search')")
-    if conn_mode == "bitmap" and bits.shape[0] < n_vertices * n_words:
-        raise ValueError(f"{name}: bitmap mode needs the full pack "
-                         f"({n_vertices} x {n_words} words)")
+    _check_pack(name, bits, conn_mode, n_vertices, n_words, row_slot,
+                n_rows, n_cols)
     if not callable(getattr(spec, "words", None)):
         raise TypeError(f"{name}: spec must be a kernel-readable spec "
                         "(PredicateSpec, CanonicalSpec or BranchSetSpec)")
@@ -140,16 +186,22 @@ def _pruned_args(name, col_idx, offsets, starts, emb_flat, vlo, vhi, bits,
     words = spec.words()
     c_args = (*map(_ptr, (offsets, starts, emb_flat, vlo, vhi, col_idx,
                           bits)),
+              None if row_slot is None else _ptr(row_slot),
               None if state is None else _ptr(state),
               None if labels is None else _ptr(labels),
               offsets.shape[0], col_idx.shape[0], k, cand_cap,
-              int(conn_mode == "bitmap"), n_words, n_vertices,
+              CONN_MODES[conn_mode], n_words, n_vertices,
+              0 if n_rows is None else n_rows,
+              0 if n_cols is None else n_cols,
               0 if labels is None else labels.shape[0],
               (ctypes.c_int * len(words))(*words), len(words))
     return dev, c_args
 
 
-def _count_variant(spec) -> None:
+def _count_variant(name: str, spec, conn_mode: str) -> None:
+    # the instantiation: a labeled conjunction is ConjPred<true>
+    pred = "labeled" if spec.needs_labels else spec.kind
+    INSTANCE_LAUNCHES[name, pred, conn_mode] += 1
     VARIANT_LAUNCHES[spec.kind] += 1
     if spec.needs_labels:
         VARIANT_LAUNCHES["labeled"] += 1
@@ -170,39 +222,41 @@ def _pruned_outputs(dev, out_cap: int, spec):
 def extend_count(col_idx, offsets, starts, emb_flat, vlo, vhi, bits, *,
                  k: int, cand_cap: int, n_steps: int, n_vertices: int,
                  n_words: int, spec, conn_mode: str, state=None,
-                 labels=None):
+                 labels=None, row_slot=None, n_rows=None, n_cols=None):
     """Pass 1 of the pruned extend: survivors per tile of 512 slots.  See
     :func:`ref.extend_count_ref`."""
     dev, c_args = _pruned_args("extend_count", col_idx, offsets, starts,
                                emb_flat, vlo, vhi, bits, k, cand_cap,
                                n_vertices, n_words, spec, conn_mode, state,
-                               labels)
+                               labels, row_slot, n_rows, n_cols)
     if dev.type == "cpu":
         return ref.extend_count_ref(col_idx, offsets, starts, emb_flat, vlo,
                                     vhi, bits, k=k, cand_cap=cand_cap,
                                     n_steps=n_steps, n_vertices=n_vertices,
                                     n_words=n_words, spec=spec,
                                     conn_mode=conn_mode, state=state,
-                                    labels=labels)
+                                    labels=labels, row_slot=row_slot,
+                                    n_rows=n_rows, n_cols=n_cols)
     counts = torch.empty(-(-cand_cap // ref.BLOCK_C), dtype=torch.int32,
                          device=dev)
     _launch("extend_count", _lib().extend_count, *c_args, _ptr(counts))
     LAUNCHES["extend_count"] += 1
-    _count_variant(spec)
+    _count_variant("extend_count", spec, conn_mode)
     return counts
 
 
 def extend_scatter(col_idx, offsets, starts, emb_flat, vlo, vhi, bits,
                    bases, *, k: int, cand_cap: int, out_cap: int,
                    n_steps: int, n_vertices: int, n_words: int, spec,
-                   conn_mode: str, state=None, labels=None):
+                   conn_mode: str, state=None, labels=None, row_slot=None,
+                   n_rows=None, n_cols=None):
     """Pass 2 of the pruned extend: (row, u), each int32[out_cap], and for a
     branch set the compacted bitmap (row, u, state), with tile i's survivors
     at ``bases[i] + rank``.  See :func:`ref.extend_scatter_ref`."""
     dev, c_args = _pruned_args("extend_scatter", col_idx, offsets, starts,
                                emb_flat, vlo, vhi, bits, k, cand_cap,
                                n_vertices, n_words, spec, conn_mode, state,
-                               labels)
+                               labels, row_slot, n_rows, n_cols)
     if (bases.dtype != torch.int32 or not bases.is_contiguous()
             or bases.device != dev
             or bases.shape != (-(-cand_cap // ref.BLOCK_C),)):
@@ -217,13 +271,14 @@ def extend_scatter(col_idx, offsets, starts, emb_flat, vlo, vhi, bits,
                                       n_steps=n_steps, n_vertices=n_vertices,
                                       n_words=n_words, spec=spec,
                                       conn_mode=conn_mode, state=state,
-                                      labels=labels)
+                                      labels=labels, row_slot=row_slot,
+                                      n_rows=n_rows, n_cols=n_cols)
     out = _pruned_outputs(dev, out_cap, spec)
     st_ptr = _ptr(out[2]) if spec.writes_state else None
     _launch("extend_scatter", _lib().extend_scatter, *c_args, _ptr(bases),
             out_cap, _ptr(out[0]), _ptr(out[1]), st_ptr)
     LAUNCHES["extend_scatter"] += 1
-    _count_variant(spec)
+    _count_variant("extend_scatter", spec, conn_mode)
     return tuple(out)
 
 
@@ -272,17 +327,27 @@ def extend_edge(col_idx, edge_uid, offsets, starts, slots_flat, vlo,
     return tuple(out)
 
 
+def mode_launches() -> dict:
+    """Pruned-kernel launches by connectivity probe mode, summed from
+    ``INSTANCE_LAUNCHES``."""
+    modes = dict.fromkeys(CONN_MODES, 0)
+    for (_, _, mode), n in INSTANCE_LAUNCHES.items():
+        modes[mode] += n
+    return modes
+
+
 PLAIN_VERSIONS = (ref.extend_candidates_ref, ref.extend_count_ref,
                   ref.extend_scatter_ref, ref.extend_edge_ref,
                   ref.extend_pruned_1p_ref)
 
 
 def reset_counts() -> None:
-    """Zero ``LAUNCHES``, ``VARIANT_LAUNCHES`` and every plain version's
-    ``calls``."""
+    """Zero every launch count (``LAUNCHES``, ``VARIANT_LAUNCHES``,
+    ``INSTANCE_LAUNCHES``) and every plain version's ``calls``."""
     for counts in (LAUNCHES, VARIANT_LAUNCHES):
         for name in counts:
             counts[name] = 0
+    INSTANCE_LAUNCHES.clear()
     for fn in PLAIN_VERSIONS:
         fn.calls = 0
 
@@ -290,7 +355,8 @@ def reset_counts() -> None:
 def extend_pruned(col_idx, offsets, starts, emb_flat, vlo, vhi, bits, *,
                   k: int, cand_cap: int, out_cap: int, n_steps: int,
                   n_vertices: int, n_words: int, spec, conn_mode: str,
-                  state=None, labels=None):
+                  state=None, labels=None, row_slot=None, n_rows=None,
+                  n_cols=None):
     """The two-pass pruned extend: count, exclusive scan, scatter.
 
     Pass 1 counts survivors per tile; an int32 ``torch.cumsum`` of the
@@ -303,7 +369,8 @@ def extend_pruned(col_idx, offsets, starts, emb_flat, vlo, vhi, bits, *,
     """
     kw = dict(k=k, cand_cap=cand_cap, n_steps=n_steps,
               n_vertices=n_vertices, n_words=n_words, spec=spec,
-              conn_mode=conn_mode, state=state, labels=labels)
+              conn_mode=conn_mode, state=state, labels=labels,
+              row_slot=row_slot, n_rows=n_rows, n_cols=n_cols)
     counts = extend_count(col_idx, offsets, starts, emb_flat, vlo, vhi,
                           bits, **kw)
     incl = torch.cumsum(counts, 0, dtype=torch.int32)
@@ -316,7 +383,8 @@ def extend_pruned(col_idx, offsets, starts, emb_flat, vlo, vhi, bits, *,
 def extend_pruned_1p(col_idx, offsets, starts, emb_flat, vlo, vhi, bits, *,
                      k: int, cand_cap: int, out_cap: int, n_steps: int,
                      n_vertices: int, n_words: int, spec, conn_mode: str,
-                     state=None, labels=None):
+                     state=None, labels=None, row_slot=None, n_rows=None,
+                     n_cols=None):
     """The single-pass pruned extend: (row int32[out_cap], u int32[out_cap],
     [state int32[out_cap],] n_surv int32[]), the survivors in slot order,
     and their true count; the state for a branch set.
@@ -329,7 +397,7 @@ def extend_pruned_1p(col_idx, offsets, starts, emb_flat, vlo, vhi, bits, *,
     dev, c_args = _pruned_args("extend_pruned_1p", col_idx, offsets, starts,
                                emb_flat, vlo, vhi, bits, k, cand_cap,
                                n_vertices, n_words, spec, conn_mode, state,
-                               labels)
+                               labels, row_slot, n_rows, n_cols)
     if out_cap < 1:
         raise ValueError(f"extend_pruned_1p: out_cap={out_cap}")
     if dev.type == "cpu":
@@ -340,7 +408,8 @@ def extend_pruned_1p(col_idx, offsets, starts, emb_flat, vlo, vhi, bits, *,
                                         n_vertices=n_vertices,
                                         n_words=n_words, spec=spec,
                                         conn_mode=conn_mode, state=state,
-                                        labels=labels)
+                                        labels=labels, row_slot=row_slot,
+                                        n_rows=n_rows, n_cols=n_cols)
     out = _pruned_outputs(dev, out_cap, spec)
     n_surv = torch.empty((), dtype=torch.int32, device=dev)
     # a status word per BLOCK_C slots (at least one per tile) and the
@@ -351,5 +420,5 @@ def extend_pruned_1p(col_idx, offsets, starts, emb_flat, vlo, vhi, bits, *,
     _launch("extend_pruned_1p", _lib().extend_pruned_1p, *c_args, out_cap,
             _ptr(scratch), _ptr(out[0]), _ptr(out[1]), st_ptr, _ptr(n_surv))
     LAUNCHES["extend_pruned_1p"] += 1
-    _count_variant(spec)
+    _count_variant("extend_pruned_1p", spec, conn_mode)
     return (*out, n_surv)

@@ -19,7 +19,9 @@ The pruned versions evaluate every spec kind of ``repro_torch.core.api``
 the parents' state, which a branch set reads) and ``labels`` (the vertex
 labels, which a labeled spec gathers, clipped to the table) are keyword
 arguments.  A branch set's bitmap is also compacted, as a third output
-beside ``row`` and ``u``.
+beside ``row`` and ``u``.  ``conn_mode`` "mixed" probes a partial or core
+pack (``row_slot``, ``n_rows``, ``n_cols``, keyword arguments) as
+``GraphCtx.is_connected`` does.
 """
 from __future__ import annotations
 
@@ -86,13 +88,16 @@ extend_candidates_ref.calls = 0
 def _pruned_mask(col_idx, offsets, starts, emb_flat, vlo, vhi, bits, *,
                  lo: int, hi: int, k: int, n_steps: int, n_vertices: int,
                  n_words: int, spec, conn_mode: str, state=None,
-                 labels=None):
+                 labels=None, row_slot=None, n_rows=None, n_cols=None):
     """Stage K1 of the pruned kernels: enumerate, probe, apply the spec.
 
     Returns (row, u, keep, new_state) over slots ``lo .. hi-1``, where
     ``new_state`` is a branch set's bitmap (None for the other kinds).
     ``conn_mode`` is "bitmap" (``bits`` holds the full pack, one int32 row
-    pattern per vertex) or "search" (CSR binary search; ``bits`` unused).
+    pattern per vertex), "search" (CSR binary search; ``bits`` unused) or
+    "mixed": the parent vertex's row is ``row_slot[ev]``; a packed row
+    (and, when ``n_cols < n_vertices``, a candidate below ``n_cols``)
+    answers from the bitmap, anything else from the CSR search.
     """
     n_parents = offsets.shape[0]
     m = col_idx.shape[0]
@@ -114,9 +119,20 @@ def _pruned_mask(col_idx, offsets, starts, emb_flat, vlo, vhi, bits, *,
             found = ((w >> (u_b & 31)) & 1) == 1
         elif conn_mode == "search":
             found = binary_contains(col_idx, vlo[pj], vhi[pj], u, n_steps)
+        elif conn_mode == "mixed":
+            pack_row = row_slot[ev.clamp(0, n_vertices - 1).long()]
+            in_pack = pack_row >= 0
+            if n_cols < n_vertices:            # a core pack's column guard
+                in_pack = in_pack & (u < n_cols)
+            u_c = u.clamp(0, n_cols - 1)
+            w = bits[pack_row.clamp(0, n_rows - 1).long() * n_words
+                     + (u_c >> 5).long()]
+            hit = ((w >> (u_c & 31)) & 1) == 1
+            found = torch.where(in_pack, hit, binary_contains(
+                col_idx, vlo[pj], vhi[pj], u, n_steps))
         else:
             raise ValueError(f"conn_mode {conn_mode!r} not in "
-                             "('bitmap', 'search')")
+                             "('bitmap', 'search', 'mixed')")
         emb_cols.append(ev)
         conn_cols.append(found & (ev >= 0) & (u >= 0))
     emb_cols, conn_cols = tuple(emb_cols), tuple(conn_cols)
@@ -151,7 +167,8 @@ def _tile_keep(keep, lo: int, hi: int):
 def extend_count_ref(col_idx, offsets, starts, emb_flat, vlo, vhi, bits, *,
                      k: int, cand_cap: int, n_steps: int, n_vertices: int,
                      n_words: int, spec, conn_mode: str, state=None,
-                     labels=None, slots=None):
+                     labels=None, row_slot=None, n_rows=None, n_cols=None,
+                     slots=None):
     """Pass 1 of the pruned pair: survivors per tile of ``BLOCK_C`` slots
     (int32[ceil(cand_cap / BLOCK_C)], or the tiles of ``slots``)."""
     extend_count_ref.calls += 1
@@ -159,7 +176,8 @@ def extend_count_ref(col_idx, offsets, starts, emb_flat, vlo, vhi, bits, *,
     _, _, keep, _ = _pruned_mask(
         col_idx, offsets, starts, emb_flat, vlo, vhi, bits, lo=lo, hi=hi,
         k=k, n_steps=n_steps, n_vertices=n_vertices, n_words=n_words,
-        spec=spec, conn_mode=conn_mode, state=state, labels=labels)
+        spec=spec, conn_mode=conn_mode, state=state, labels=labels,
+        row_slot=row_slot, n_rows=n_rows, n_cols=n_cols)
     return _tile_keep(keep, lo, hi).sum(dim=1, dtype=torch.int32)
 
 
@@ -169,7 +187,8 @@ extend_count_ref.calls = 0
 def extend_scatter_ref(col_idx, offsets, starts, emb_flat, vlo, vhi, bits,
                        bases, *, k: int, cand_cap: int, out_cap: int,
                        n_steps: int, n_vertices: int, n_words: int, spec,
-                       conn_mode: str, state=None, labels=None, slots=None):
+                       conn_mode: str, state=None, labels=None, row_slot=None,
+                       n_rows=None, n_cols=None, slots=None):
     """Pass 2 of the pruned pair: survivor r of tile i goes to
     ``bases[i] + r`` when that is below ``out_cap``.
 
@@ -182,7 +201,8 @@ def extend_scatter_ref(col_idx, offsets, starts, emb_flat, vlo, vhi, bits,
     row, u, keep, new_st = _pruned_mask(
         col_idx, offsets, starts, emb_flat, vlo, vhi, bits, lo=lo, hi=hi,
         k=k, n_steps=n_steps, n_vertices=n_vertices, n_words=n_words,
-        spec=spec, conn_mode=conn_mode, state=state, labels=labels)
+        spec=spec, conn_mode=conn_mode, state=state, labels=labels,
+        row_slot=row_slot, n_rows=n_rows, n_cols=n_cols)
     ki = _tile_keep(keep, lo, hi)
     n_tiles = ki.shape[0]
     rank = torch.cumsum(ki, dim=1, dtype=torch.int32).view(-1)[:hi - lo] - 1
@@ -212,7 +232,8 @@ def _place(row, u, new_st, keep, dest, out_cap: int):
 def extend_pruned_1p_ref(col_idx, offsets, starts, emb_flat, vlo, vhi, bits,
                          *, k: int, cand_cap: int, out_cap: int, n_steps: int,
                          n_vertices: int, n_words: int, spec, conn_mode: str,
-                         state=None, labels=None, slots=None, base: int = 0):
+                         state=None, labels=None, row_slot=None, n_rows=None,
+                         n_cols=None, slots=None, base: int = 0):
     """The single-pass pruned extend (counterpart of
     ``fused_extend_pruned_ref``): enumerate, apply the predicate, and
     compact the survivors in slot order by one prefix sum.
@@ -231,7 +252,8 @@ def extend_pruned_1p_ref(col_idx, offsets, starts, emb_flat, vlo, vhi, bits,
     row, u, keep, new_st = _pruned_mask(
         col_idx, offsets, starts, emb_flat, vlo, vhi, bits, lo=lo, hi=hi,
         k=k, n_steps=n_steps, n_vertices=n_vertices, n_words=n_words,
-        spec=spec, conn_mode=conn_mode, state=state, labels=labels)
+        spec=spec, conn_mode=conn_mode, state=state, labels=labels,
+        row_slot=row_slot, n_rows=n_rows, n_cols=n_cols)
     incl = torch.cumsum(keep, 0, dtype=torch.int64)
     out = _place(row, u, new_st, keep, base + incl - 1, out_cap)
     n_surv = (base + incl[-1]).to(torch.int32)

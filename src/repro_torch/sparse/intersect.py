@@ -26,17 +26,36 @@ def binary_contains(sorted_arr: torch.Tensor, lo: torch.Tensor,
     return (probe == targets) & (low < hi) & (lo < hi)
 
 
+def linear_contains(sorted_arr: torch.Tensor, lo: torch.Tensor,
+                    hi: torch.Tensor, targets: torch.Tensor,
+                    max_len: int) -> torch.Tensor:
+    """Is targets[i] in sorted_arr[lo[i]:hi[i]]?  A scan of the first
+    ``max_len`` entries of each segment (the paper's naive baseline, for
+    the Fig. 13b ablation); the temporaries are ``[N, max_len]``."""
+    offs = torch.arange(max_len, dtype=torch.int32, device=lo.device)
+    idx = lo.to(torch.int32)[:, None] + offs[None, :]
+    valid = idx < hi[:, None]
+    vals = sorted_arr[idx.clamp(0, sorted_arr.shape[0] - 1).long()]
+    return (valid & (vals == targets[:, None])).any(dim=1)
+
+
 def adj_contains(row_ptr: torch.Tensor, col_idx: torch.Tensor,
-                 u: torch.Tensor, v: torch.Tensor,
-                 n_steps: int) -> torch.Tensor:
-    """isConnected(u, v): is v in the sorted adjacency of u?  Negative u
-    or v is padding and returns False."""
+                 u: torch.Tensor, v: torch.Tensor, n_steps: int,
+                 method: str = "binary") -> torch.Tensor:
+    """isConnected(u, v): is v in the sorted adjacency of u?  ``method`` is
+    "binary" (search) or "linear" (scan of ``2**n_steps`` entries).
+    Negative u or v is padding and returns False."""
+    if method not in ("binary", "linear"):
+        raise ValueError(method)
     u_safe = u.clamp(0, row_ptr.shape[0] - 2).long()
     lo = row_ptr[u_safe]
     hi = row_ptr[u_safe + 1]
     if col_idx.shape[0] == 0:
         return torch.zeros(u.shape, dtype=torch.bool, device=u.device)
-    found = binary_contains(col_idx, lo, hi, v, n_steps)
+    if method == "binary":
+        found = binary_contains(col_idx, lo, hi, v, n_steps)
+    else:
+        found = linear_contains(col_idx, lo, hi, v, 1 << n_steps)
     return found & (u >= 0) & (v >= 0)
 
 

@@ -358,3 +358,38 @@ def test_args_keeper_keeps_the_level_it_names():
     plain_kw = {**kw, "state": None}
     assert row - smoke.bytes_moved("extend_scatter", a, plain_kw) == \
         4 * (kw["state"].numel() + kw["out_cap"])
+
+
+# -- the [mixed] phase: partial and core packs, K1's mixed probe
+
+@pytest.mark.parametrize("backend,names", [
+    ("cuda", ("extend_candidates", "extend_count", "extend_scatter")),
+    ("cuda-1p", ("extend_pruned_1p",))])
+@pytest.mark.parametrize("opts", [dict(pack_partial=True),
+                                  dict(relabel=True)],
+                         ids=["partial", "core"])
+def test_mixed_checks_hold_every_launch(backend, names, opts):
+    smoke = _smoke()
+    g, expected = _graph_and_counts(smoke)
+    checks = smoke.checked_runs(g, APPS, expected, "cpu", keep="tc",
+                                chunk=512, backend=backend, names=names,
+                                pack_max_bytes=512, **opts)
+    assert "mixed" in checks.modes and set(checks.err.values()) == {0}
+    assert min(checks.launches.values()) >= 2
+    a, kw = checks.kept[names[-1]]
+    twin = smoke.search_twin(kw)
+    assert twin["conn_mode"] == "search" and "row_slot" not in twin
+    # the mixed bound is the search bound and the row map, none of the pack
+    assert smoke.bytes_moved(names[-1], a, kw) - smoke.bytes_moved(
+        names[-1], a, twin) == 4 * kw["row_slot"].numel()
+
+
+def test_mixed_rows_name_each_kernel_and_the_probe():
+    smoke = _smoke()
+    assert sorted(smoke.MIXED_REPLACES) == sorted(
+        f"{name}:{row}" for name in smoke.PRUNED_REPLACES
+        for row in smoke.MIXED_ROWS)
+    assert set(smoke.MIXED_REPLACES.values()) == {smoke.MIXED_PROBE}
+    # the budget is a quarter of RMAT-16's full pack: 65,536 rows of 2,048
+    # words
+    assert smoke.MIXED_BUDGET16 * 4 == 65536 * 2048 * 4

@@ -262,6 +262,141 @@ def test_pruned_kernels_refuse_missing_state_or_labels(cuda):
                          **{n: v for n, v in kw.items() if n != "out_cap"})
 
 
+def _mixed_pack(g, pack: str):
+    """The kernel arguments of a partial pack (20 of the 60 rows) or a core
+    pack (rows and columns [0, 32), so candidates u >= 32 take the CSR
+    branch) of ``g``: (bits, keyword arguments)."""
+    pg = pack_adjacency(g, max_bytes=160, core=pack == "core")
+    assert not pg.full
+    assert (pg.n_packed, pg.n_cols) == ((20, 60) if pack == "partial"
+                                        else (32, 32))
+    return pg.words.reshape(-1), dict(
+        n_words=pg.n_words, conn_mode="mixed", row_slot=pg.row_slot,
+        n_rows=pg.n_packed, n_cols=pg.n_cols)
+
+
+@pytest.mark.parametrize("pack", ["partial", "core"])
+@pytest.mark.parametrize("variant", ("clique",) + SPEC_VARIANTS)
+def test_mixed_kernels_match_plain_and_search(cuda, pack, variant):
+    """K2 and K4 in mixed mode equal their plain versions and the search
+    kernels' buffers bit for bit, for every spec kind, under a partial and
+    a core pack (lanes with u >= n_cols included)."""
+    if variant == "clique":
+        k, spec, state, labels = (3, resolve_kernel_predicate(
+            make_cf_app(4), 3), None, None)
+    else:
+        k, spec, state, labels = _variant_spec(variant, cuda)
+    g, args, zbits, _, n_steps, total = _inputs(cuda, "search", k=k)
+    bits, mixed = _mixed_pack(g, pack)
+    u_all = ref.extend_candidates_ref(*args, k=k, cand_cap=total,
+                                      n_steps=n_steps)[1]
+    if pack == "core":
+        assert int((u_all >= mixed["n_cols"]).sum()) > 0
+    base = dict(k=k, cand_cap=total + 300, n_steps=n_steps,
+                n_vertices=g.n_vertices, spec=spec, state=state,
+                labels=labels)
+    for out_cap in (total + 7, 100):                 # roomy, overflow
+        kw = dict(base, out_cap=out_cap, **mixed)
+        search = dict(base, out_cap=out_cap, n_words=1, conn_mode="search")
+        ops.reset_counts()
+        pair = ops.extend_pruned(*args, bits, **kw)
+        one = ops.extend_pruned_1p(*args, bits, **kw)
+        torch.cuda.synchronize()
+        assert ops.mode_launches() == {"search": 0, "bitmap": 0, "mixed": 3}
+        assert sum(f.calls for f in ops.PLAIN_VERSIONS) == 0
+        counts = ref.extend_count_ref(*args, bits, **{
+            n: v for n, v in kw.items() if n != "out_cap"})
+        incl = torch.cumsum(counts, 0, dtype=torch.int32)
+        want = ref.extend_scatter_ref(*args, bits, incl - counts, **kw)
+        for a, b in zip(pair, (*want, incl[-1], counts)):
+            assert torch.equal(a, b)
+        for a, b in zip(one, ref.extend_pruned_1p_ref(*args, bits, **kw)):
+            assert torch.equal(a, b)
+        for a, b in zip(pair, ops.extend_pruned(*args, zbits, **search)):
+            assert torch.equal(a, b)                 # a mode changes nothing
+        for a, b in zip(one, ops.extend_pruned_1p(*args, zbits, **search)):
+            assert torch.equal(a, b)
+
+
+def test_mixed_kernels_refuse_a_bad_pack(cuda):
+    g, args, _, _, n_steps, total = _inputs(cuda, "search")
+    bits, mixed = _mixed_pack(g, "core")
+    kw = dict(k=3, cand_cap=total + 300, n_steps=n_steps,
+              n_vertices=g.n_vertices, spec=PredicateSpec(), **mixed)
+    with pytest.raises(ValueError, match="row_slot"):
+        ops.extend_count(*args, bits, **{**kw, "row_slot": None})
+    with pytest.raises(ValueError, match="row_slot"):
+        ops.extend_count(*args, bits, **{**kw, "row_slot": kw["row_slot"][:9]})
+    with pytest.raises(ValueError, match="words"):
+        ops.extend_count(*args, bits[:5], **kw)
+    with pytest.raises(ValueError, match="n_cols"):
+        ops.extend_count(*args, bits, **{**kw, "n_cols": 61})
+    with pytest.raises(ValueError, match="device"):
+        ops.extend_count(*args, bits, **{**kw,
+                                         "row_slot": kw["row_slot"].cpu()})
+
+
+PACKED_MINERS = {
+    "partial": dict(pack_partial=True, pack_max_bytes=4096),
+    "relabel": dict(relabel=True, pack_max_bytes=4096),
+}
+
+
+@pytest.mark.parametrize("backend", ["cuda", "cuda-1p"])
+@pytest.mark.parametrize("opts", sorted(PACKED_MINERS))
+@pytest.mark.parametrize("app_name", ["tc", "4-cf", "mc3"])
+def test_cuda_miner_in_mixed_mode_matches_search(cuda, app_name, opts,
+                                                 backend):
+    """A partial or core pack runs the mixed kernels: the counts, p_map and
+    every level (vid, idx, state) equal the same Miner's search run, and
+    the count the plain backend's."""
+    make_app = {"tc": make_tc_app, "4-cf": lambda: make_cf_app(4),
+                "mc3": lambda: make_mc_app(3)}[app_name]
+    g = TG.rmat(10, 16, seed=0, device=cuda)
+    kw = PACKED_MINERS[opts]
+    want = Miner(g, make_app(), backend="torch-ref", device=cuda,
+                 **kw).run()
+    search = Miner(g, make_app(), backend=backend, device=cuda,
+                   **{**kw, "pack_max_bytes": 0}).run()
+    ops.reset_counts()
+    m = Miner(g, make_app(), backend=backend, device=cuda, **kw)
+    assert not m.ctx.packed.full
+    got = m.run()
+    assert m.run().count == got.count == want.count == search.count
+    if want.p_map is not None:
+        assert np.array_equal(got.p_map, want.p_map)
+    modes = ops.mode_launches()
+    assert modes["mixed"] >= 2 and modes["search"] == modes["bitmap"] == 0
+    assert sum(f.calls for f in ops.PLAIN_VERSIONS) == 0
+    for x, y in zip(got.levels, search.levels):
+        n = int(x.n)
+        assert n == int(y.n)
+        assert torch.equal(x.vid[:n], y.vid[:n])
+        assert torch.equal(x.idx[:n], y.idx[:n])
+        assert (x.state is None) == (y.state is None)
+        if x.state is not None:
+            assert torch.equal(x.state[:n], y.state[:n])
+
+
+@pytest.mark.parametrize("backend", ["cuda", "cuda-1p"])
+def test_cuda_unfused_filter_counts_as_fused(cuda, backend):
+    g = TG.rmat(9, 16, seed=0, device=cuda)
+    for make_app in (lambda: make_cf_app(4), lambda: make_mc_app(3)):
+        fused = Miner(g, make_app(), backend=backend, device=cuda).run()
+        ops.reset_counts()
+        m = Miner(g, make_app(), backend=backend, fuse_filter=False,
+                  device=cuda)
+        for _ in ("cold", "warm"):
+            got = m.run()
+            assert got.count == fused.count
+            if fused.p_map is not None:
+                assert np.array_equal(got.p_map, fused.p_map)
+        assert ops.LAUNCHES["extend_candidates"] >= 2
+        assert ops.LAUNCHES["extend_count"] == ops.LAUNCHES[
+            "extend_pruned_1p"] == 0
+        assert sum(f.calls for f in ops.PLAIN_VERSIONS) == 0
+
+
 MC_APPS = {
     "mc3": lambda: make_mc_app(3), "mc4": lambda: make_mc_app(4),
     "mc4-memo": lambda: make_mc_app(4, "memo"),

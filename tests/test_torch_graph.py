@@ -104,8 +104,14 @@ def test_pack_bit31_reads_from_int32_words():
 
 
 def test_partial_pack_is_not_ported():
-    with pytest.raises(NotImplementedError, match="partial and core"):
-        pack_adjacency(TG.rmat(7, seed=1, device="cpu"), max_bytes=64)
+    """Over budget the pack is the JAX package's partial pack, not a
+    refusal: 64 bytes hold the four highest-degree rows of RMAT-7."""
+    tp = pack_adjacency(TG.rmat(7, seed=1, device="cpu"), max_bytes=64)
+    jp = jax_pack(G.rmat(7, seed=1), max_bytes=64)
+    assert not tp.full and (tp.n_packed, tp.n_cols) == (4, 128)
+    np.testing.assert_array_equal(tp.row_slot.numpy(), np.asarray(jp.row_slot))
+    np.testing.assert_array_equal(tp.words.numpy(),
+                                  np.asarray(jp.words).view(np.int32))
 
 
 def test_entry_points_need_a_device_choice(monkeypatch):

@@ -250,9 +250,10 @@ def test_cuda_1p_contract():
 
 def test_cuda_1p_refuses_what_cuda_refuses():
     g = TG.erdos_renyi(30, 0.25, seed=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="fuse_filter"):
-        Miner(g, make_tc_app(), backend="cuda-1p", fuse_filter=False,
-              device="cpu").run()
+    want = Miner(g, make_tc_app(), backend="cuda-1p", device="cpu").run()
+    # the unfused ablation and a partial pack run, as on cuda
+    assert Miner(g, make_tc_app(), backend="cuda-1p", fuse_filter=False,
+                 device="cpu").run().count == want.count
     with pytest.raises(NotImplementedError, match="predicate spec"):
         Miner(g, make_cf_app(3, use_dag=False, eager_prune=False),
               backend="cuda-1p", device="cpu").run()
@@ -264,8 +265,7 @@ def test_cuda_1p_refuses_what_cuda_refuses():
     m.ctx = dataclasses.replace(m.ctx, packed=dataclasses.replace(
         m.ctx.packed, full=False))
     m.ops.ctx = m.ctx
-    with pytest.raises(NotImplementedError, match="partial"):
-        m.run()
+    assert m.run().count == want.count
 
 
 def test_wrapper_checks_its_inputs():
@@ -275,6 +275,8 @@ def test_wrapper_checks_its_inputs():
     with pytest.raises(ValueError, match="out_cap"):
         ops.extend_pruned_1p(*targs, out_cap=0, conn_mode="search", **common)
     with pytest.raises(ValueError, match="conn_mode"):
+        ops.extend_pruned_1p(*targs, out_cap=8, conn_mode="sparse", **common)
+    with pytest.raises(ValueError, match="row_slot"):
         ops.extend_pruned_1p(*targs, out_cap=8, conn_mode="mixed", **common)
     with pytest.raises(ValueError, match="int32"):
         ops.extend_pruned_1p(*targs[:-1], targs[-1].long(), out_cap=8,

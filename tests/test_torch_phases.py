@@ -131,23 +131,29 @@ def test_cuda_backend_refuses_app_without_spec():
 
 
 def test_cuda_backend_refuses_unfused_filter():
-    with pytest.raises(NotImplementedError, match="fuse_filter"):
-        _small_miner(make_tc_app(), fuse_filter=False).run()
-    # the plain backend's materialise-then-filter ablation still counts
+    """``fuse_filter=False`` is served on cuda, not refused: the
+    materialise-then-filter ablation (the inspection kernel, the spec in
+    PyTorch, the filter) counts what the fused path counts, as on the plain
+    backend."""
+    assert _small_miner(make_tc_app(), fuse_filter=False).run().count == \
+        _small_miner(make_tc_app()).run().count
     assert _small_miner(make_tc_app(), "torch-ref",
                         fuse_filter=False).run().count == \
         _small_miner(make_tc_app(), "torch-ref").run().count
 
 
 def test_cuda_backend_refuses_partial_pack():
+    """A pack that is not full is run on cuda, not refused: the mixed
+    probe (here the full pack's rows through row_slot) counts what the full
+    pack counts."""
+    want = _small_miner(make_tc_app()).run().count
     m = _small_miner(make_tc_app())
     pg = m.ctx.packed
     m.ctx = dataclasses.replace(m.ctx, packed=dataclasses.replace(
         pg, full=False))
     m.ops.ctx = m.ctx
     assert isinstance(m.ctx.packed, PackedGraph)
-    with pytest.raises(NotImplementedError, match="partial"):
-        m.run()
+    assert m.run().count == want
 
 
 def test_cuda_backend_refuses_labels_and_state():
