@@ -7,7 +7,11 @@ Phases (any failure raises, and the script exits non-zero):
 
 1. device   — the card's name and power limit.
 2. build    — compile every CUDA source of the port with nvcc (all at
-              once) and print each ``-Xptxas -v`` report.
+              once) and print each ``-Xptxas -v`` report, then the
+              registers, spills, stack and shared memory of each of the 45
+              pruned-kernel instantiations (wrapper, predicate, probe
+              mode), which the timing lines and the kernels' JSON record
+              repeat beside each timed instantiation.
 3. kernels  — TC and 4-CF run cold and warm through ``Miner.run`` with
               every kernel launch held against its plain PyTorch version
               on the same inputs on the card, bit for bit, at the shapes
@@ -125,6 +129,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -542,6 +547,44 @@ def bytes_moved(name: str, a, kw) -> int:
     return reads + 2 * tiles + outs * kw["out_cap"] * 4   # bases in
 
 
+# The pruned kernels' instantiations in extend.cu's -Xptxas -v report: the
+# wrapper and probe mode from the kernel's symbol, the predicate (as
+# ops.INSTANCE_LAUNCHES names it) from its template argument
+INSTANCE_SYMBOL = re.compile(
+    r"(extend_count|extend_scatter|extend_pruned_1p)_kernelILi(\d)E")
+PRED_SYMBOLS = {"CliquePred": "clique", "ConjPredILb0E": "conjunction",
+                "ConjPredILb1E": "labeled", "CanonPred": "canonical",
+                "BranchPred": "branches"}
+RESOURCE_KEYS = ("registers", "spill_stores", "spill_loads")
+# (wrapper, predicate, mode) -> build.kernel_resources' entry, filled by
+# the build phase
+RESOURCES: dict = {}
+
+
+def instance_resources(report: str) -> dict:
+    """The pruned instantiations' resources in extend.cu's ``-Xptxas -v``
+    report, by (wrapper, predicate, probe mode)."""
+    from repro_torch.kernels.build import kernel_resources
+    from repro_torch.kernels.extend_fused.ops import CONN_MODES
+    modes = {v: k for k, v in CONN_MODES.items()}
+    out = {}
+    for name, res in kernel_resources(report).items():
+        m = INSTANCE_SYMBOL.search(name)
+        pred = next((p for sym, p in PRED_SYMBOLS.items() if sym in name),
+                    None)
+        if m and pred:
+            out[m.group(1), pred, modes[int(m.group(2))]] = res
+    return out
+
+
+def instance_of(name: str, kw: dict) -> tuple:
+    """The instantiation a pruned launch with keyword arguments ``kw``
+    runs, as ``ops.INSTANCE_LAUNCHES`` keys it."""
+    spec = kw["spec"]
+    return (name, "labeled" if spec.needs_labels else spec.kind,
+            kw["conn_mode"])
+
+
 # Candidate slots up to which a timed plain version runs in one call; a
 # larger pruned launch's plain version runs (and is timed) in pieces of
 # this many slots, each piece compared with its window of the kernel's
@@ -588,9 +631,21 @@ def time_kernels(kept: dict) -> dict:
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                       "max_abs_err": err}
+        extra = ""
+        if name in PRUNED_REPLACES:
+            # live slots: those below cand_cap and the true total
+            live = min(kw["cand_cap"], int(a[1][-1]))
+            inst = instance_of(name, kw)
+            res = RESOURCES.get(inst, dict.fromkeys(RESOURCE_KEYS))
+            rows[name].update(live_slots=live, **{
+                key: res[key] for key in RESOURCE_KEYS})
+            extra = (f", {live} live slots, {live / ms * 1e3:.4e} live "
+                     f"slots/s, {' '.join(inst[1:])}: {res['registers']} "
+                     f"registers, spills {res['spill_stores']} / "
+                     f"{res['spill_loads']} B")
         log(f"[timing] {name} ({int_args(kw)}): {ms:.3f} ms (plain "
             f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms from {nbytes} B), "
-            f"max_abs_err {err}")
+            f"max_abs_err {err}{extra}")
         if err:
             raise AssertionError(f"{name} differs from its plain version")
         torch.cuda.empty_cache()
@@ -1826,7 +1881,16 @@ def main() -> int:
     t0 = time.perf_counter()
     for src, report in build.build_all(build.sources()).items():
         log(f"[build] {src.name}:\n{report.strip()}")
+        if src == ops.SOURCE:
+            RESOURCES.update(instance_resources(report))
     log(f"[build] {time.perf_counter() - t0:.1f} s")
+    for (name, pred, mode), res in sorted(RESOURCES.items()):
+        log(f"[build] {name} {pred} {mode}: {res['registers']} registers, "
+            f"spills {res['spill_stores']} / {res['spill_loads']} B, stack "
+            f"{res['stack']} B, smem {res['smem']} B")
+    if len(RESOURCES) != 45:
+        raise AssertionError(f"{len(RESOURCES)} pruned instantiations in "
+                             "the build report, not 45")
 
     # every kernel launch of the main path against its plain version: at
     # scale 12 with the full pack (bitmap) and without it (search), then at
@@ -2005,7 +2069,9 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t.get("bound_by", "bytes"),
-            "library_ms": t.get("library_ms")})
+            "library_ms": t.get("library_ms"),
+            **{key: t[key] for key in ("live_slots", *RESOURCE_KEYS)
+               if key in t}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,9 @@ can read, one per kind of predicate the JAX apps trace:
     state column (``update_state_kernel``).
 
 The plain backend evaluates a spec on tensors (``spec.__call__``), and the
-CUDA kernels read its fields (``spec.words()``), so both agree bit for bit.
+CUDA kernels read its fields (``spec.words()``; a branch set's table
+transposed into masks over its branches, ``BranchSetSpec.slices(k)``), so
+both agree bit for bit.
 """
 from __future__ import annotations
 
@@ -231,7 +233,8 @@ def is_auto_canonical_kernel(emb_cols, u, src_slot, state, conn):
 # does: ``spec(emb_cols, u, src_slot, state, conn[, lab_cols, lab_u])``
 # with ``emb_cols``/``conn`` length-k tuples, and encodes itself for the
 # kernels as a flat list of int32 words (``words()``): the kind, then its
-# fields.  ``KINDS`` is the kernels' numbering.
+# fields; a branch set's kernels read its table transposed
+# (``BranchSetSpec.slices(k)``).  ``KINDS`` is the kernels' numbering.
 
 KINDS = {"clique": 0, "conjunction": 1, "canonical": 2, "branches": 3}
 
@@ -341,6 +344,16 @@ CANONICAL = CanonicalSpec()
 
 # A trie level's branch bitmap is one i32 state word.
 MAX_BRANCHES = 32
+# Parent slots a branch set's slices cover: a pattern has at most
+# MAX_PATTERN_SIZE = 6 vertices (core.patterns), so a parent at most 5.
+MAX_SLICE_SLOTS = 5
+# The masks BranchSetSpec.slices lists for each slot, in order.
+SLOT_MASKS = ("anchor", "required", "forbidden", "distinct", "smaller")
+
+
+def _i32(x: int) -> int:
+    """A 32-bit mask as the signed int32 word that carries it."""
+    return x - (1 << 32) if x >> 31 else x
 
 
 @dataclasses.dataclass(frozen=True)
@@ -390,11 +403,56 @@ class BranchSetSpec:
                              f"1 to {MAX_BRANCHES}")
 
     def words(self) -> list[int]:
+        """The branch table, one row per branch: kind, 0, n, then parent,
+        anchor, required, forbidden, distinct, smaller, first_pair per
+        branch."""
         out = [KINDS["branches"], 0, len(self.branches)]
         for br in self.branches:
             out += [br.parent, br.anchor, br.required, br.forbidden,
                     br.distinct, br.smaller, int(br.first_pair)]
         return out
+
+    def slices(self, k: int) -> list[int]:
+        """The branch table (:meth:`words`) transposed for parent width
+        ``k``, the form the CUDA kernels read: 32-bit masks over the
+        branches, bit b for branch b.
+
+        Words: kind, 0, n, k, then the ``first_pair`` mask, then for each
+        parent bit p < 32 the branches whose parent is p, then for each slot
+        j < k the masks of :data:`SLOT_MASKS`: the branches anchored at j,
+        and those whose required, forbidden, distinct and smaller sets hold
+        j.  Each mask is a signed int32 word (branch 31 is its sign bit).
+        A lane evaluates the level from them in O(k + popcount(state))
+        steps.  Refuses a k outside 1 .. :data:`MAX_SLICE_SLOTS`, a parent
+        bit outside 0..31, a slot set naming a slot outside 0..k-1, and
+        ``first_pair`` at k < 2: slots or state bits the level does not
+        have.
+        """
+        if not 1 <= k <= MAX_SLICE_SLOTS:
+            raise ValueError(f"a branch set's slices cover a parent width "
+                             f"of 1 to {MAX_SLICE_SLOTS}, not k={k}")
+        first_pair, parent = 0, [0] * MAX_BRANCHES
+        slot = [[0] * len(SLOT_MASKS) for _ in range(k)]
+        table = np.array(self.words()[3:], dtype=np.int64).reshape(-1, 7)
+        for b, (par, anchor, *sets, fp) in enumerate(table.tolist()):
+            if not 0 <= par < 32:
+                raise ValueError(f"branch {b}: parent bit {par} is not a "
+                                 "bit of the i32 state")
+            if any(m < 0 or m >> k for m in sets):
+                raise ValueError(f"branch {b}: a slot set names a slot "
+                                 f"outside 0..{k - 1}")
+            if fp and k < 2:
+                raise ValueError(f"branch {b}: first_pair needs k >= 2")
+            bit = 1 << b
+            parent[par] |= bit
+            first_pair |= bit if fp else 0
+            for j in range(k):
+                masks = (anchor == j, *(m >> j & 1 for m in sets))
+                for i, on in enumerate(masks):
+                    slot[j][i] |= bit if on else 0
+        words = [first_pair, *parent, *(m for row in slot for m in row)]
+        return [KINDS["branches"], 0, len(self.branches), k,
+                *map(_i32, words)]
 
     def bits(self, emb_cols, u, src_slot, state, conn) -> torch.Tensor:
         out = torch.zeros(u.shape, dtype=torch.int32, device=u.device)

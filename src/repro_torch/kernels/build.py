@@ -12,6 +12,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -78,3 +79,30 @@ def load(source: Path) -> ctypes.CDLL:
     """The loaded library of ``source``, built first if needed."""
     build_all([source])
     return ctypes.CDLL(str(library_path(source)))
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers(?:.*?, (\d+) bytes smem)?")
+
+
+def kernel_resources(report: str) -> dict[str, dict]:
+    """Per kernel (its mangled name) in an ``-Xptxas -v`` report: the
+    registers a thread uses, the spill stores and loads (bytes), the stack
+    frame and the static shared memory (bytes)."""
+    out: dict[str, dict] = {}
+    name = None
+    for line in report.splitlines():
+        if m := _ENTRY.search(line):
+            name = m.group(1)
+            out[name] = dict.fromkeys(("registers", "spill_stores",
+                                       "spill_loads", "stack", "smem"), 0)
+        elif name and (m := _FRAME.search(line)):
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        elif name and (m := _USED.search(line)):
+            out[name].update(registers=int(m.group(1)),
+                             smem=int(m.group(2) or 0))
+    return out

@@ -18,19 +18,43 @@
 // the stream it is given, allocates nothing, never synchronises, and returns
 // cudaGetLastError() so the caller sees a refused launch.
 //
-// What bounds them on an H100: none does arithmetic worth counting; all are
-// memory-latency bound.  Per candidate slot a thread runs a binary search of
-// the parent prefix sum (log2 of cap*k dependent loads), one CSR gather, and
-// up to k connectivity probes (a binary search of a CSR row, or one word of
-// the bit-packed adjacency; see the probe modes below).  The compulsory traffic is the parent tables
-// (5 x 4 B per parent slot), col_idx (3.6 MB at RMAT-16, which stays in the
-// 50 MB L2) and the outputs: 16 B per slot for extend_candidates, 4 B per
-// tile for extend_count, 8 B per survivor for extend_scatter.  The simple
-// design here runs one thread per slot so neighbouring threads walk nearly
-// the same search path (the top of each search hits L1/L2), skips the probes
-// of a slot once its predicate is already false, and does not enumerate dead
-// slots in the pruned pair.  Making them fast (a per-CTA parent window in
-// shared memory, warp-cooperative probes) is later work.
+// What bounds them on an H100: none does arithmetic worth counting, and
+// none waits on DRAM.  The compulsory traffic is the parent tables (5 x 4 B
+// per parent slot), col_idx (3.6 MB at RMAT-16, which stays in the 50 MB
+// L2) and the outputs: 16 B per slot for extend_candidates, 4 B per tile
+// for extend_count, 8 B per survivor for extend_scatter (12 B with a
+// state).  The pruned kernels take 15-600x that bound, bound by the
+// instructions and the chains of dependent loads each slot takes (the
+// parent search, the CSR gather, the predicate's probes) and each CTA's
+// prologue: on an H100 80GB HBM3 at 700 W they enumerate 5-10e10 live
+// slots/s, and the same launch costs 3-28% more in search mode than in
+// mixed mode (a CSR search per probe against, mostly, one bitmap word), so
+// the probes' searches are a part of the time, not its pace.  Hence the
+// design of the pruned kernels:
+//   the parent window  A CTA takes consecutive 512-slot tiles (eight in the
+//                pair, four in extend_pruned_1p), whose live slots come
+//                from a short run of parents: two warps
+//                find its first and last parent by 32-way searches of the
+//                prefix sum (log32 of cap*k dependent loads, once per CTA),
+//                and the CTA stages the rows' parent tables
+//                (offsets, starts, emb, vlo, vhi, a branch set's state) in
+//                shared memory when they fit kWin entries.  Each slot finds
+//                its parent by a short search of the window, and the
+//                gather, the predicate and the probes read the parent
+//                tables from there.  A longer span (many parents without
+//                candidates between two live ones) is read from global
+//                memory, each search bounded to the span: the same answers.
+//                A hub whose candidates fill many tiles gives a window of
+//                one row.  The CTA's prologue (the two searches, the
+//                staging) costs a fifth to a third of a tile, so a window
+//                serves several: on an H100 four tiles a window beat one,
+//                and eight beat four by 5-9% in the pair; extend_pruned_1p
+//                keeps four (eight doubles its survivor buffer and was
+//                slower on the branch set at 3-MC's level 2).
+//   the sliced branch set  See BranchPred: masks over the branches, so a
+//                lane tests every branch at once and probes only the slots
+//                a surviving branch still names.
+// Only the slots below cand_cap and the true total are enumerated.
 //
 // extend_pruned_1p enumerates once where the pair enumerates twice.  The TPU
 // kernel carries the running survivor offset from tile to tile in SMEM,
@@ -43,8 +67,12 @@
 // are the pair's bit for bit.  Its compulsory traffic is the pair's reads
 // plus 8 B per survivor and 8 B per tile of status.  A tile waits until
 // every earlier tile has counted, and the work per tile is uneven (search
-// depths, dead slots), so a CTA takes four 512-slot sub-tiles: a quarter
-// of the look-backs, and less spread in the time per tile.
+// depths, dead slots), so its CTA's four 512-slot tiles make one tile of
+// the look-back: a quarter of the look-backs, and less spread in the time
+// per tile.  Each survivor's (row, u[, state]) waits
+// for the tile's base in shared memory at its rank, not in registers, so
+// no thread holds a result through the look-back (32-40 registers, no
+// spill), and the CTA writes its survivors out coalesced.
 //
 // The pruned kernels evaluate four kinds of predicate (the spec kinds of
 // repro_torch/core/api.py), each a template instantiation of
@@ -58,19 +86,15 @@
 //                every slot in slot order (is_auto_canonical_kernel);
 //   branches     a pattern-set trie level: up to 32 branches, each with a
 //                parent bit of the parent's i32 state, an anchor slot,
-//                required/forbidden/distinct/smaller masks and first_pair.
-//                The lane first keeps the branches whose parent bit and
-//                anchor match; with none it probes nothing.  Otherwise it
-//                probes each slot that a kept branch names once, builds
-//                its connectivity, equality and order masks once, and
-//                tests each kept branch against them with a few integer
-//                ops.  The bitmap is the keep mask (!= 0) and the new
-//                state, which extend_scatter and extend_pruned_1p compact
-//                through the same tile_rank as row and u (8 B more per
-//                survivor: the parent's state read, the new state written).
-// The branch table travels by value in the kernel parameters (about 0.9
-// KB of the 4 KB); every lane reads the same entry, so the reads are
-// constant-bank broadcasts.
+//                required/forbidden/distinct/smaller masks and first_pair,
+//                evaluated as masks over the branches (BranchPred).  The
+//                bitmap is the keep mask (!= 0) and the new state, which
+//                extend_scatter and extend_pruned_1p compact through the
+//                same tile_rank as row and u (8 B more per survivor: the
+//                parent's state read, the new state written).
+// Each kernel takes its predicate as a __grid_constant__ parameter, so a
+// branch set's 58-word table is staged into shared memory from the
+// parameter space without a copy to local memory.
 //
 // K1 probes connectivity in one of three modes (conn_mode, a template
 // parameter of every pruned kernel, so each mode compiles to its own code):
@@ -99,14 +123,33 @@
 
 namespace {
 
-constexpr int kTile = 512;            // slots per CTA in the pruned pair
+constexpr int kTile = 512;            // slots per tile, threads per CTA
 constexpr int kWarps = kTile / 32;
-constexpr int kItems1p = 4;           // 512-slot sub-tiles per CTA, 1p
+constexpr int kPairTiles = 8;         // 512-slot tiles per CTA, the pair
+constexpr int kPairSpan = kPairTiles * kTile;
+constexpr int k1pTiles = 4;           // 512-slot tiles per CTA, 1p
+constexpr int k1pSpan = k1pTiles * kTile;
 constexpr int kCandThreads = 256;     // threads per CTA in extend_candidates
+// Parent entries a CTA stages in shared memory: the flat parent indices of
+// the rows its live slots (kPairTiles or k1pTiles tiles) come from, when
+// they number at most this.
+constexpr int kWin = 1024;
 
 // The kinds of spec (KINDS in repro_torch/core/api.py).
 enum Kind { kClique = 0, kConjunction = 1, kCanonical = 2, kBranches = 3 };
-constexpr int kMaxBranches = 32;
+
+// A branch set's sliced table (BranchSetSpec.slices() in
+// repro_torch/core/api.py), one 32-bit mask over the branches per word:
+// first_pair, then P_b for each parent bit b (the branches whose parent is
+// b), then per slot j < k the branches anchored at j, and those that
+// require, forbid, are distinct from and exceed slot j.
+constexpr int kMaxSlots = 5;          // parent width: MAX_PATTERN_SIZE - 1
+constexpr int kTabFirstPair = 0;
+constexpr int kTabParent = 1;
+constexpr int kTabSlot = kTabParent + 32;
+enum SlotMask { kAnchor = 0, kRequired, kForbidden, kDistinct, kSmaller,
+                kSlotMasks };
+constexpr int kTabWords = kTabSlot + kSlotMasks * kMaxSlots;
 
 // The clique predicate, PredicateSpec with no forbidden slot and no label.
 struct Spec {
@@ -123,9 +166,11 @@ struct Tables {
   const int* vlo;       // row_ptr[emb]
   const int* vhi;       // row_ptr[emb + 1]
   const int* col;       // CSR column array, [m]
+  const int* state;     // the parents' state, [n_rows] (a branch set's)
   int n_parents;
   int m;
   int k;
+  int n_rows;
 };
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
@@ -180,10 +225,142 @@ struct Pack {
   int n_cols;
 };
 
+// ---------------------------------------------------------------------------
+// The parent window.  A CTA's live slots [s0, s1) come from a contiguous run
+// of parents, first..last (the parents of s0 and of s1 - 1), and their
+// predicates read the rows first / k .. last / k.  Two warps find first and
+// last with a 32-way search of the prefix sum; when the rows' entries number
+// at most kWin, the CTA stages them (offsets, starts, emb, vlo, vhi, and a
+// branch set's state) in shared memory, and each slot's parent search and
+// every read of the parent tables after it go there.  A longer span (many
+// parents without candidates between two live ones) is read from global
+// memory, each search bounded to [first, last]: the same answer either way.
+
+template <bool State>
+struct Window {
+  int off[kWin], sta[kWin], emb[kWin], vlo[kWin], vhi[kWin];
+  int st[State ? kWin : 1];   // state of rows first / k ..
+  unsigned tab[State ? kTabWords : 1];   // a branch set's sliced table
+  int p_first, p_last;
+};
+
+// First p in [lo, hi) with a[p] > s, or hi if none; a sorted.  Run by a
+// whole warp: each round reads 32 evenly spaced entries and keeps the part
+// where the first of them above s lies, so a search of n entries takes
+// log32(n) dependent loads where a thread's binary search takes log2(n).
+__device__ __forceinline__ int warp_upper_bound(const int* __restrict__ a,
+                                                int lo, int hi, int s) {
+  const int lane = threadIdx.x & 31;
+  while (hi - lo > 32) {
+    int step = (hi - lo + 31) >> 5;
+    int e = min(lo + (lane + 1) * step, hi) - 1;
+    unsigned gt = __ballot_sync(0xffffffffu, __ldg(a + e) > s);
+    if (!gt) return hi;
+    int c = __ffs(gt) - 1;
+    hi = min(lo + (c + 1) * step, hi);         // a[hi - 1] > s
+    lo += c * step;
+  }
+  unsigned gt = __ballot_sync(0xffffffffu,
+                              lo + lane < hi && __ldg(a + lo + lane) > s);
+  return gt ? lo + __ffs(gt) - 1 : hi;
+}
+
+// The parent tables read from the window: entry i is flat index wb + i,
+// row r's state entry r - rf.
+template <bool State>
+struct SmemView {
+  const Window<State>* w;
+  int wb, rf;
+
+  // first p in [first, last] with offsets[p] > slot
+  __device__ __forceinline__ int parent(int slot) const {
+    int lo = w->p_first - wb, hi = w->p_last - wb;
+    while (lo < hi) {
+      int mid = (lo + hi) >> 1;
+      if (w->off[mid] <= slot) lo = mid + 1; else hi = mid;
+    }
+    return lo + wb;
+  }
+  __device__ __forceinline__ int start(int p) const { return w->sta[p - wb]; }
+  __device__ __forceinline__ int emb(int pj) const { return w->emb[pj - wb]; }
+  __device__ __forceinline__ int vlo(int pj) const { return w->vlo[pj - wb]; }
+  __device__ __forceinline__ int vhi(int pj) const { return w->vhi[pj - wb]; }
+  __device__ __forceinline__ int state(int row) const {
+    return w->st[row - rf];
+  }
+  __device__ __forceinline__ const unsigned* tab() const { return w->tab; }
+};
+
+// The same reads from global memory, indices clamped to the tables.
+template <bool State>
+struct GlobalView {
+  const Tables& t;
+  const Window<State>* w;
+  int p_first, p_last;
+
+  __device__ __forceinline__ int parent(int slot) const {
+    int lo = p_first, hi = p_last;
+    while (lo < hi) {
+      int mid = (lo + hi) >> 1;
+      if (__ldg(t.offsets + mid) <= slot) lo = mid + 1; else hi = mid;
+    }
+    return lo;
+  }
+  __device__ __forceinline__ int at(const int* a, int pj) const {
+    return __ldg(a + clampi(pj, 0, t.n_parents - 1));
+  }
+  __device__ __forceinline__ int start(int p) const { return at(t.starts, p); }
+  __device__ __forceinline__ int emb(int pj) const { return at(t.emb, pj); }
+  __device__ __forceinline__ int vlo(int pj) const { return at(t.vlo, pj); }
+  __device__ __forceinline__ int vhi(int pj) const { return at(t.vhi, pj); }
+  __device__ __forceinline__ int state(int row) const {
+    return __ldg(t.state + clampi(row, 0, t.n_rows - 1));
+  }
+  __device__ __forceinline__ const unsigned* tab() const { return w->tab; }
+};
+
+// Run body(view) for the CTA's live slots [s0, s1), s0 < s1, the view
+// reading the window when the span fits it and global memory otherwise;
+// the predicate's table is staged either way.  Every thread of the CTA
+// calls it (it synchronises).
+template <class P, bool State, class B>
+__device__ __forceinline__ void with_window(const Tables& t, const P& pred,
+                                            Window<State>& w, int s0, int s1,
+                                            B&& body) {
+  int warp = threadIdx.x >> 5;
+  if (warp < 2) {
+    int p = warp_upper_bound(t.offsets, 0, t.n_parents, warp ? s1 - 1 : s0);
+    p = min(p, t.n_parents - 1);
+    if ((threadIdx.x & 31) == 0) (warp ? w.p_last : w.p_first) = p;
+  }
+  pred.stage(w);
+  __syncthreads();
+  int rf = w.p_first / t.k, rl = w.p_last / t.k;
+  int wb = rf * t.k, wl = (rl + 1) * t.k - wb;
+  if (wl > kWin) {
+    body(GlobalView<State>{t, &w, w.p_first, w.p_last});
+    return;
+  }
+  for (int i = threadIdx.x; i < wl; i += blockDim.x) {
+    int g = min(wb + i, t.n_parents - 1);
+    w.off[i] = __ldg(t.offsets + g);
+    w.sta[i] = __ldg(t.starts + g);
+    w.emb[i] = __ldg(t.emb + g);
+    w.vlo[i] = __ldg(t.vlo + g);
+    w.vhi[i] = __ldg(t.vhi + g);
+  }
+  if constexpr (State) {
+    for (int r = threadIdx.x; r <= rl - rf; r += blockDim.x)
+      w.st[r] = __ldg(t.state + clampi(rf + r, 0, t.n_rows - 1));
+  }
+  __syncthreads();
+  body(SmemView<State>{&w, wb, rf});
+}
+
 // Is u adjacent to the parent slot at flat index pj, whose vertex ev >= 0?
-template <int M>
-__device__ __forceinline__ bool probe(const Tables& t, const Pack& pk, int pj,
-                                      int ev, int u) {
+template <int M, class V>
+__device__ __forceinline__ bool probe(const Tables& t, const V& v,
+                                      const Pack& pk, int pj, int ev, int u) {
   if (M == kBitmap)
     return bitmap_contains(pk.bits, pk.n_words, pk.n_vertices,
                            clampi(ev, 0, pk.n_vertices - 1), u);
@@ -193,7 +370,7 @@ __device__ __forceinline__ bool probe(const Tables& t, const Pack& pk, int pj,
       return bitmap_contains(pk.bits, pk.n_words, pk.n_cols,
                              r < pk.n_rows ? r : pk.n_rows - 1, u);
   }
-  return csr_contains(t.col, t.vlo[pj], t.vhi[pj], u);
+  return csr_contains(t.col, v.vlo(pj), v.vhi(pj), u);
 }
 
 struct Cand {
@@ -203,31 +380,31 @@ struct Cand {
   int bits;         // a branch set's bitmap (the new state); 0 otherwise
 };
 
-// The predicates.  Each eval() gets the lane's parent row, source slot and
-// candidate, and conn(pj, ev): is u adjacent to the parent slot at flat
-// index pj, whose vertex is ev (a bitmap bit or a CSR search, false for a
-// dead slot).  Every
-// predicate probes only once u >= 0 is established (the plain version's
-// connectivity bits also require it): the clique and conjunction test it
-// first, the canonical test's u > emb_0 >= -1 implies it, and a branch
-// set keeps no branch for u < 0.
+// The predicates.  Each eval() gets the view of the parent tables, the
+// parent width k, the lane's parent row, source slot and candidate, and
+// conn(pj, ev): is u adjacent to the parent slot at flat index pj, whose
+// vertex is ev (a bitmap bit or a CSR search, false for a dead slot).
+// Every predicate probes only once u >= 0 is established (the plain
+// version's connectivity bits also require it): the clique and
+// conjunction test it first, the canonical test's u > emb_0 >= -1 implies
+// it, and a branch set keeps no branch for u < 0.
 
 struct CliquePred {
   static constexpr bool kWritesState = false;
+  template <class W> __device__ void stage(W&) const {}
   Spec spec;
 
-  template <class F>
-  __device__ __forceinline__ Cand eval(const Tables& t, int row, int src_slot,
-                                       int u, F conn) const {
+  template <class V, class F>
+  __device__ __forceinline__ Cand eval(const V& v, int k, int row,
+                                       int src_slot, int u, F conn) const {
     bool ok = u >= 0;
     if (spec.src_slot_eq >= 0) ok = ok && src_slot == spec.src_slot_eq;
-    int base = row * t.k;
-    for (int j = 0; j < t.k && ok; ++j) {
-      int pj = clampi(base + j, 0, t.n_parents - 1);
-      int ev = t.emb[pj];
+    int base = row * k;
+    for (int j = 0; j < k && ok; ++j) {
+      int ev = v.emb(base + j);
       if ((spec.distinct >> j) & 1) ok = ok && u != ev;
       if ((spec.greater >> j) & 1) ok = ok && u > ev;
-      if (ok && ((spec.required >> j) & 1)) ok = conn(pj, ev);
+      if (ok && ((spec.required >> j) & 1)) ok = conn(base + j, ev);
     }
     return Cand{row, u, ok, 0};
   }
@@ -239,6 +416,7 @@ struct CliquePred {
 template <bool Labeled>
 struct ConjPred {
   static constexpr bool kWritesState = false;
+  template <class W> __device__ void stage(W&) const {}
   Spec spec;
   int forbidden;
   int label, lab0, lab1;
@@ -249,26 +427,24 @@ struct ConjPred {
     return __ldg(labels + clampi(v, 0, n_labels - 1));
   }
 
-  template <class F>
-  __device__ __forceinline__ Cand eval(const Tables& t, int row, int src_slot,
-                                       int u, F conn) const {
+  template <class V, class F>
+  __device__ __forceinline__ Cand eval(const V& v, int k, int row,
+                                       int src_slot, int u, F conn) const {
     bool ok = u >= 0;
-    int base = row * t.k;
+    int base = row * k;
     if (Labeled) {
       if (label >= 0) ok = ok && lab(u) == label;
       if (ok && lab0 >= 0)
-        ok = lab(t.emb[clampi(base, 0, t.n_parents - 1)]) == lab0
-             && lab(t.emb[clampi(base + 1, 0, t.n_parents - 1)]) == lab1;
+        ok = lab(v.emb(base)) == lab0 && lab(v.emb(base + 1)) == lab1;
     }
     if (spec.src_slot_eq >= 0) ok = ok && src_slot == spec.src_slot_eq;
-    for (int j = 0; j < t.k && ok; ++j) {
-      int pj = clampi(base + j, 0, t.n_parents - 1);
-      int ev = t.emb[pj];
+    for (int j = 0; j < k && ok; ++j) {
+      int ev = v.emb(base + j);
       if ((spec.distinct >> j) & 1) ok = ok && u != ev;
       if ((spec.greater >> j) & 1) ok = ok && u > ev;
       bool rq = (spec.required >> j) & 1, fb = (forbidden >> j) & 1;
       if (ok && (rq || fb)) {
-        bool c = conn(pj, ev);
+        bool c = conn(base + j, ev);
         ok = (!rq || c) && (!fb || !c);
       }
     }
@@ -282,19 +458,19 @@ struct ConjPred {
 // adjacent.  Once a term fails the answer is false, so probing stops.
 struct CanonPred {
   static constexpr bool kWritesState = false;
+  template <class W> __device__ void stage(W&) const {}
 
-  template <class F>
-  __device__ __forceinline__ Cand eval(const Tables& t, int row, int src_slot,
-                                       int u, F conn) const {
-    int base = row * t.k;
-    bool ok = u > t.emb[clampi(base, 0, t.n_parents - 1)];
+  template <class V, class F>
+  __device__ __forceinline__ Cand eval(const V& v, int k, int row,
+                                       int src_slot, int u, F conn) const {
+    int base = row * k;
+    bool ok = u > v.emb(base);
     bool found = false;
-    for (int j = 0; j < t.k && ok; ++j) {
-      int pj = clampi(base + j, 0, t.n_parents - 1);
-      int ev = t.emb[pj];
+    for (int j = 0; j < k && ok; ++j) {
+      int ev = v.emb(base + j);
       ok = !(found && u < ev) && u != ev;
       if (!ok) break;
-      bool adj = conn(pj, ev);
+      bool adj = conn(base + j, ev);
       found = found || adj;
       ok = !(adj && j < src_slot);
     }
@@ -302,56 +478,56 @@ struct CanonPred {
   }
 };
 
-struct Branch {
-  int parent, anchor, required, forbidden, distinct, smaller, first_pair;
-};
-
+// A pattern-set trie level: up to 32 branches, sliced into masks over the
+// branches (kTab*), which the CTA stages in shared memory, since lanes index
+// them by their own state bits and source slot.  A lane keeps the branches
+// whose parent bit its parent's state carries and which are anchored at its
+// source slot (live), clears those that the cheap tests fail (u == emb_j
+// for a distinct slot, u <= emb_j for a smaller one, first_pair), then
+// probes slot j, in slot order, only while a surviving branch requires or
+// forbids it, clearing the branches the answer fails; it stops once none
+// survives.  A cleared bit never returns, and a slot that no surviving
+// branch names changes no surviving bit, so the answer is every branch's
+// conjunction, as the plain version evaluates it.
 struct BranchPred {
   static constexpr bool kWritesState = true;
-  int n;
-  Branch b[kMaxBranches];
-  const int* state;     // the parents' state, [n_rows]
-  int n_rows;
+  unsigned tab[kTabWords];
 
-  template <class F>
-  __device__ __forceinline__ Cand eval(const Tables& t, int row, int src_slot,
-                                       int u, F conn) const {
-    int st = __ldg(state + clampi(row, 0, n_rows - 1));
+  template <class W>
+  __device__ __forceinline__ void stage(W& w) const {
+    if (threadIdx.x < kTabWords) w.tab[threadIdx.x] = tab[threadIdx.x];
+  }
+
+  template <class V, class F>
+  __device__ __forceinline__ Cand eval(const V& v, int k, int row,
+                                       int src_slot, int u, F conn) const {
+    if (u < 0) return Cand{row, u, false, 0};
+    const unsigned* T = v.tab();
     unsigned live = 0;
-    int need = 0;                       // slots a live branch probes
-    // The branch loops are unrolled to constant indices, so each read of
-    // the table is a constant-bank load (a dynamic index would copy the
-    // table to local memory).
-    if (u >= 0) {
+    for (unsigned s = (unsigned)v.state(row); s; s &= s - 1)
+      live |= T[kTabParent + __ffs(s) - 1];
+    live &= T[kTabSlot + kSlotMasks * src_slot + kAnchor];
+    if (!live) return Cand{row, u, false, 0};
+    int base = row * k;
+    int ev[kMaxSlots] = {0, 0, 0, 0, 0};
+    unsigned out = live;
 #pragma unroll
-      for (int i = 0; i < kMaxBranches; ++i) {
-        if (i < n && ((st >> b[i].parent) & 1) && src_slot == b[i].anchor) {
-          live |= 1u << i;
-          need |= b[i].required | b[i].forbidden;
-        }
+    for (int j = 0; j < kMaxSlots; ++j) {
+      if (j < k) {
+        const unsigned* S = T + kTabSlot + kSlotMasks * j;
+        ev[j] = v.emb(base + j);
+        if (u == ev[j]) out &= ~S[kDistinct];
+        if (!(u > ev[j])) out &= ~S[kSmaller];
       }
     }
-    if (!live) return Cand{row, u, false, 0};
-    int base = row * t.k;
-    int cm = 0, eq = 0, gt = 0, ev0 = 0, ev1 = 0;
-    for (int j = 0; j < t.k; ++j) {
-      int pj = clampi(base + j, 0, t.n_parents - 1);
-      int ev = t.emb[pj];
-      if (j == 0) ev0 = ev;
-      if (j == 1) ev1 = ev;
-      eq |= int(u == ev) << j;
-      gt |= int(u > ev) << j;
-      if (((need >> j) & 1) && conn(pj, ev)) cm |= 1 << j;
-    }
-    unsigned out = 0;
+    if (!(ev[0] < ev[1])) out &= ~T[kTabFirstPair];
 #pragma unroll
-    for (int i = 0; i < kMaxBranches; ++i) {
-      bool ok = ((live >> i) & 1)
-                && (cm & b[i].required) == b[i].required
-                && (cm & b[i].forbidden) == 0 && (eq & b[i].distinct) == 0
-                && (gt & b[i].smaller) == b[i].smaller
-                && (!b[i].first_pair || ev0 < ev1);
-      out |= unsigned(ok) << i;
+    for (int j = 0; j < kMaxSlots; ++j) {
+      if (j < k && out) {
+        const unsigned* S = T + kTabSlot + kSlotMasks * j;
+        unsigned rq = S[kRequired], fb = S[kForbidden];
+        if (out & (rq | fb)) out &= conn(base + j, ev[j]) ? ~fb : ~rq;
+      }
     }
     return Cand{row, u, out != 0, int(out)};
   }
@@ -359,20 +535,21 @@ struct BranchPred {
 
 // K1, the shared stage of all pruned kernels (port of _tile_enumerate):
 // parent search, CSR gather, then the predicate with its connectivity
-// probes in mode M, for one live slot.  Every pass calls this one
-// function, so pass 2 replays pass 1.
-template <int M, class P>
-__device__ __forceinline__ Cand enumerate_slot(const Tables& t, int slot,
-                                               const Pack& pk, const P& pred) {
-  int p = parent_of(t.offsets, t.n_parents, slot);
+// probes in mode M, for one live slot, reading the parent tables through
+// view v.  Every pass calls this one function, so pass 2 replays pass 1.
+template <int M, class V, class P>
+__device__ __forceinline__ Cand enumerate_slot(const Tables& t, const V& v,
+                                               int slot, const Pack& pk,
+                                               const P& pred) {
+  int p = v.parent(slot);
   int row = p / t.k;
   int src_slot = p - row * t.k;
-  int ptr = clampi(t.vlo[p] + (slot - t.starts[p]), 0, t.m - 1);
+  int ptr = clampi(v.vlo(p) + (slot - v.start(p)), 0, t.m - 1);
   int u = __ldg(t.col + ptr);
   auto conn = [&](int pj, int ev) -> bool {
-    return ev >= 0 && probe<M>(t, pk, pj, ev, u);
+    return ev >= 0 && probe<M>(t, v, pk, pj, ev, u);
   };
-  return pred.eval(t, row, src_slot, u, conn);
+  return pred.eval(v, t.k, row, src_slot, u, conn);
 }
 
 __global__ void __launch_bounds__(kCandThreads)
@@ -398,17 +575,38 @@ extend_candidates_kernel(Tables t, int cand_cap, int* __restrict__ row_out,
   conn_out[slot] = conn;
 }
 
+// The end of the live slots of the CTA whose first slot is s0 and which
+// covers `span` slots: below cand_cap and the true total.
+__device__ __forceinline__ int live_end(const Tables& t, int cand_cap,
+                                        int s0, int span) {
+  int total = __ldg(t.offsets + t.n_parents - 1);
+  return min(min(cand_cap, total), s0 + span);
+}
+
+// Pass 1: the survivors of each 512-slot tile.  A CTA takes kPairTiles
+// consecutive tiles under one parent window, one slot per thread and tile.
 template <int M, class P>
 __global__ void __launch_bounds__(kTile)
-extend_count_kernel(Tables t, int cand_cap, Pack pk, P pred,
+extend_count_kernel(Tables t, int cand_cap, Pack pk,
+                    const __grid_constant__ P pred,
                     int* __restrict__ counts) {
-  int slot = blockIdx.x * kTile + threadIdx.x;
-  int total = t.offsets[t.n_parents - 1];
-  bool keep = false;
-  if (slot < cand_cap && slot < total)
-    keep = enumerate_slot<M>(t, slot, pk, pred).keep;
-  int cnt = __syncthreads_count(keep);
-  if (threadIdx.x == 0) counts[blockIdx.x] = cnt;
+  __shared__ Window<P::kWritesState> w;
+  int s0 = blockIdx.x * kPairSpan;
+  int s1 = live_end(t, cand_cap, s0, kPairSpan);
+  int tile0 = blockIdx.x * kPairTiles;
+  int n_tiles = min(kPairTiles, (cand_cap + kTile - 1) / kTile - tile0);
+  if (s0 >= s1) {                         // no live slot: every count 0
+    if ((int)threadIdx.x < n_tiles) counts[tile0 + threadIdx.x] = 0;
+    return;
+  }
+  with_window(t, pred, w, s0, s1, [&](const auto& v) {
+    for (int j = 0; j < n_tiles; ++j) {
+      int slot = s0 + j * kTile + threadIdx.x;
+      bool keep = slot < s1 && enumerate_slot<M>(t, v, slot, pk, pred).keep;
+      int cnt = __syncthreads_count(keep);
+      if (threadIdx.x == 0) counts[tile0 + j] = cnt;
+    }
+  });
 }
 
 // The lane-order exclusive rank of `keep` within the CTA's tile (stable
@@ -438,28 +636,37 @@ __device__ __forceinline__ int tile_rank(bool keep, int* warp_base,
   return warp_base[warp] + __popc(ballot & ((1u << lane) - 1u));
 }
 
+// Pass 2: tile i's survivors at bases[i] + their rank in the tile, the
+// tiles taken as in pass 1.
 template <int M, class P>
 __global__ void __launch_bounds__(kTile)
-extend_scatter_kernel(Tables t, int cand_cap, Pack pk, P pred,
+extend_scatter_kernel(Tables t, int cand_cap, Pack pk,
+                      const __grid_constant__ P pred,
                       const int* __restrict__ bases, int out_cap,
                       int* __restrict__ row_out, int* __restrict__ u_out,
                       int* __restrict__ state_out) {
-  __shared__ int warp_base[kWarps + 1];
-  int slot = blockIdx.x * kTile + threadIdx.x;
-  int total = t.offsets[t.n_parents - 1];
-  Cand c{0, -1, false, 0};
-  if (slot < cand_cap && slot < total)
-    c = enumerate_slot<M>(t, slot, pk, pred);
-  int count;
-  int r = tile_rank(c.keep, warp_base, &count);
-  if (c.keep) {
-    long long dest = (long long)bases[blockIdx.x] + r;
-    if (dest < out_cap) {
-      row_out[dest] = c.row;
-      u_out[dest] = c.u;
-      if constexpr (P::kWritesState) state_out[dest] = c.bits;
+  __shared__ Window<P::kWritesState> w;
+  __shared__ int warp_base[2][kWarps + 1];
+  int s0 = blockIdx.x * kPairSpan;
+  int s1 = live_end(t, cand_cap, s0, kPairSpan);
+  if (s0 >= s1) return;                   // no live slot, no survivor
+  with_window(t, pred, w, s0, s1, [&](const auto& v) {
+    for (int j = 0; j < kPairTiles && s0 + j * kTile < s1; ++j) {
+      int slot = s0 + j * kTile + threadIdx.x;
+      Cand c{0, -1, false, 0};
+      if (slot < s1) c = enumerate_slot<M>(t, v, slot, pk, pred);
+      int count;
+      int r = tile_rank(c.keep, warp_base[j & 1], &count);
+      if (c.keep) {
+        long long dest = (long long)bases[blockIdx.x * kPairTiles + j] + r;
+        if (dest < out_cap) {
+          row_out[dest] = c.row;
+          u_out[dest] = c.u;
+          if constexpr (P::kWritesState) state_out[dest] = c.bits;
+        }
+      }
     }
-  }
+  });
 }
 
 // A tile's status word: the flag in the high half, the survivor count in
@@ -521,38 +728,56 @@ __device__ int lookback(unsigned long long* status, int tile, int count) {
 }
 
 // Port of _pruned_extend_kernel (extend.py:322): enumerate, predicate and
-// compact in one pass.  A CTA's tile is kItems1p consecutive 512-slot
-// sub-tiles, each ranked by tile_rank (double-buffered, so one barrier per
-// sub-tile suffices) and held in registers; one look-back per tile gives
-// its base.  The tile that takes the last ticket writes the true survivor
-// total (which may exceed out_cap: writes at dest >= out_cap are dropped,
-// as in the pair).  `status` (n_tiles words) and `ticket` are zero at
-// launch.
+// compact in one pass.  A CTA's tile is k1pTiles consecutive 512-slot
+// sub-tiles under one parent window, each ranked by tile_rank
+// (double-buffered, so one barrier per sub-tile suffices); each survivor's
+// (row, u[, state]) goes to shared memory at its rank in the tile, so no
+// thread holds a result through the look-back.  One look-back per tile
+// gives its base, and the CTA copies its survivors to base + rank,
+// coalesced.  The tile that takes the last ticket writes the true
+// survivor total (which may exceed out_cap: writes at dest >= out_cap are
+// dropped, as in the pair).  `status` (n_tiles words) and `ticket` are
+// zero at launch; the survivors take surv_bytes<P>() of dynamic shared
+// memory.
+template <class P>
+constexpr int surv_bytes() {
+  return (P::kWritesState ? 3 : 2) * k1pSpan * (int)sizeof(int);
+}
+
 template <int M, class P>
 __global__ void __launch_bounds__(kTile)
-extend_pruned_1p_kernel(Tables t, int cand_cap, Pack pk, P pred, int out_cap,
+extend_pruned_1p_kernel(Tables t, int cand_cap, Pack pk,
+                        const __grid_constant__ P pred, int out_cap,
                         unsigned long long* status, unsigned int* ticket,
                         int* __restrict__ row_out, int* __restrict__ u_out,
                         int* __restrict__ state_out,
                         int* __restrict__ n_surv) {
+  __shared__ Window<P::kWritesState> w;
   __shared__ int warp_base[2][kWarps + 1];
   __shared__ int tile_s, base_s;
+  extern __shared__ int surv[];   // row, u[, state]: k1pSpan entries each
   if (threadIdx.x == 0) tile_s = (int)atomicAdd(ticket, 1u);
   __syncthreads();
   int tile = tile_s;
-  int total = t.offsets[t.n_parents - 1];
-  Cand c[kItems1p];
-  int rank[kItems1p];
+  int s0 = tile * k1pSpan;
+  int s1 = live_end(t, cand_cap, s0, k1pSpan);
   int count = 0;
-#pragma unroll
-  for (int j = 0; j < kItems1p; ++j) {
-    int slot = (tile * kItems1p + j) * kTile + threadIdx.x;
-    c[j] = Cand{0, -1, false, 0};
-    if (slot < cand_cap && slot < total)
-      c[j] = enumerate_slot<M>(t, slot, pk, pred);
-    int n;
-    rank[j] = count + tile_rank(c[j].keep, warp_base[j & 1], &n);
-    count += n;
+  if (s0 < s1) {
+    with_window(t, pred, w, s0, s1, [&](const auto& v) {
+      for (int j = 0; j < k1pTiles && s0 + j * kTile < s1; ++j) {
+        int slot = s0 + j * kTile + threadIdx.x;
+        Cand c{0, -1, false, 0};
+        if (slot < s1) c = enumerate_slot<M>(t, v, slot, pk, pred);
+        int n;
+        int r = count + tile_rank(c.keep, warp_base[j & 1], &n);
+        if (c.keep) {
+          surv[r] = c.row;
+          surv[k1pSpan + r] = c.u;
+          if constexpr (P::kWritesState) surv[2 * k1pSpan + r] = c.bits;
+        }
+        count += n;
+      }
+    });
   }
   if (threadIdx.x < 32) {
     int base = lookback(status, tile, count);
@@ -562,16 +787,13 @@ extend_pruned_1p_kernel(Tables t, int cand_cap, Pack pk, P pred, int out_cap,
     }
   }
   __syncthreads();
-#pragma unroll
-  for (int j = 0; j < kItems1p; ++j) {
-    if (c[j].keep) {
-      long long dest = (long long)base_s + rank[j];
-      if (dest < out_cap) {
-        row_out[dest] = c[j].row;
-        u_out[dest] = c[j].u;
-        if constexpr (P::kWritesState) state_out[dest] = c[j].bits;
-      }
-    }
+  int base = base_s;
+  for (int i = threadIdx.x; i < count; i += kTile) {
+    long long dest = (long long)base + i;
+    if (dest >= out_cap) break;
+    row_out[dest] = surv[i];
+    u_out[dest] = surv[k1pSpan + i];
+    if constexpr (P::kWritesState) state_out[dest] = surv[2 * k1pSpan + i];
   }
 }
 
@@ -656,8 +878,9 @@ extend_edge_kernel(EdgeTables t, int cand_cap, int* __restrict__ row_out,
 
 Tables make_tables(const int* offsets, const int* starts, const int* emb,
                    const int* vlo, const int* vhi, const int* col,
-                   int n_parents, int m, int k) {
-  return Tables{offsets, starts, emb, vlo, vhi, col, n_parents, m, k};
+                   const int* state, int n_parents, int m, int k) {
+  return Tables{offsets, starts, emb, vlo, vhi, col, state, n_parents, m, k,
+                k > 0 ? n_parents / k : 0};
 }
 
 // Whether `mode` is a probe mode and `pk` the pack it reads: bitmap needs
@@ -694,9 +917,8 @@ void with_mode(int mode, F&& launch) {
 // distinct, smaller, first_pair per branch.  A malformed spec, or one that
 // lacks the state or labels it reads, is refused before any launch.
 template <class F>
-cudaError_t with_pred(const int* w, int n_words, const int* state,
-                      const int* labels, int n_labels, int n_rows,
-                      F&& launch) {
+cudaError_t with_pred(const int* w, int n_words, const Tables& t,
+                      const int* labels, int n_labels, F&& launch) {
   if (n_words < 2) return cudaErrorInvalidValue;
   int kind = w[0];
   bool labeled = w[1] != 0;
@@ -716,19 +938,20 @@ cudaError_t with_pred(const int* w, int n_words, const int* state,
     if (n_words != 2 || labeled) return cudaErrorInvalidValue;
     launch(CanonPred{});
   } else if (kind == kBranches) {
-    if (n_words < 3 || labeled || state == nullptr)
+    // n, k, then the sliced table; every mask within the n branches
+    if (n_words < 4 || labeled || t.state == nullptr)
       return cudaErrorInvalidValue;
+    int n = w[2];
+    if (n < 1 || n > 32 || w[3] != t.k || t.k < 1 || t.k > kMaxSlots
+        || n_words != 4 + kTabSlot + kSlotMasks * t.k)
+      return cudaErrorInvalidValue;
+    unsigned valid = n == 32 ? ~0u : (1u << n) - 1u;
     BranchPred pred{};
-    pred.n = w[2];
-    if (pred.n < 1 || pred.n > kMaxBranches || n_words != 3 + 7 * pred.n)
-      return cudaErrorInvalidValue;
-    for (int i = 0; i < pred.n; ++i) {
-      const int* x = w + 3 + 7 * i;
-      if (x[0] < 0 || x[0] > 31) return cudaErrorInvalidValue;
-      pred.b[i] = Branch{x[0], x[1], x[2], x[3], x[4], x[5], x[6]};
+    for (int i = 0; i < n_words - 4; ++i) {
+      unsigned x = static_cast<unsigned>(w[4 + i]);
+      if (x & ~valid) return cudaErrorInvalidValue;
+      pred.tab[i] = x;
     }
-    pred.state = state;
-    pred.n_rows = n_rows;
     launch(pred);
   } else {
     return cudaErrorInvalidValue;
@@ -748,7 +971,8 @@ int extend_candidates(const int* offsets, const int* starts, const int* emb,
                       const int* vlo, const int* vhi, const int* col,
                       int n_parents, int m, int k, int cand_cap, int* row,
                       int* u, int* src_slot, int* conn, void* stream) {
-  Tables t = make_tables(offsets, starts, emb, vlo, vhi, col, n_parents, m, k);
+  Tables t = make_tables(offsets, starts, emb, vlo, vhi, col, nullptr,
+                         n_parents, m, k);
   int blocks = (cand_cap + kCandThreads - 1) / kCandThreads;
   extend_candidates_kernel<<<blocks, kCandThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
@@ -769,34 +993,36 @@ int extend_candidates(const int* offsets, const int* starts, const int* emb,
     int n_spec
 
 int extend_count(PRUNED_PARAMS, int* counts, void* stream) {
-  Tables t = make_tables(offsets, starts, emb, vlo, vhi, col, n_parents, m, k);
+  Tables t = make_tables(offsets, starts, emb, vlo, vhi, col, state,
+                         n_parents, m, k);
   Pack pk{bits, row_slot, n_words, n_vertices, n_rows, n_cols};
   if (cudaError_t e = check_pack(conn_mode, pk)) return static_cast<int>(e);
-  int n_tiles = (cand_cap + kTile - 1) / kTile;
+  int n_ctas = (cand_cap + kPairSpan - 1) / kPairSpan;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(with_pred(
-      spec, n_spec, state, labels, n_labels, n_parents / k, [&](auto pred) {
+      spec, n_spec, t, labels, n_labels, [&](auto pred) {
         with_mode(conn_mode, [&](auto mode) {
           extend_count_kernel<decltype(mode)::value>
-              <<<n_tiles, kTile, 0, st>>>(t, cand_cap, pk, pred, counts);
+              <<<n_ctas, kTile, 0, st>>>(t, cand_cap, pk, pred, counts);
         });
       }));
 }
 
 int extend_scatter(PRUNED_PARAMS, const int* bases, int out_cap, int* row,
                    int* u, int* state_out, void* stream) {
-  Tables t = make_tables(offsets, starts, emb, vlo, vhi, col, n_parents, m, k);
+  Tables t = make_tables(offsets, starts, emb, vlo, vhi, col, state,
+                         n_parents, m, k);
   Pack pk{bits, row_slot, n_words, n_vertices, n_rows, n_cols};
   if (cudaError_t e = check_pack(conn_mode, pk)) return static_cast<int>(e);
-  int n_tiles = (cand_cap + kTile - 1) / kTile;
+  int n_ctas = (cand_cap + kPairSpan - 1) / kPairSpan;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_spec > 0 && spec[0] == kBranches && state_out == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(with_pred(
-      spec, n_spec, state, labels, n_labels, n_parents / k, [&](auto pred) {
+      spec, n_spec, t, labels, n_labels, [&](auto pred) {
         with_mode(conn_mode, [&](auto mode) {
           extend_scatter_kernel<decltype(mode)::value>
-              <<<n_tiles, kTile, 0, st>>>(t, cand_cap, pk, pred, bases,
+              <<<n_ctas, kTile, 0, st>>>(t, cand_cap, pk, pred, bases,
                                           out_cap, row, u, state_out);
         });
       }));
@@ -806,10 +1032,11 @@ int extend_pruned_1p(PRUNED_PARAMS, int out_cap, void* scratch, int* row,
                      int* u, int* state_out, int* n_surv, void* stream) {
   // scratch: n_tiles status words, then the ticket; both must start at
   // zero, or a stale status from the last launch corrupts the bases
-  Tables t = make_tables(offsets, starts, emb, vlo, vhi, col, n_parents, m, k);
+  Tables t = make_tables(offsets, starts, emb, vlo, vhi, col, state,
+                         n_parents, m, k);
   Pack pk{bits, row_slot, n_words, n_vertices, n_rows, n_cols};
   if (cudaError_t e = check_pack(conn_mode, pk)) return static_cast<int>(e);
-  int n_tiles = (cand_cap + kTile * kItems1p - 1) / (kTile * kItems1p);
+  int n_tiles = (cand_cap + k1pSpan - 1) / k1pSpan;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_spec > 0 && spec[0] == kBranches && state_out == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -818,12 +1045,16 @@ int extend_pruned_1p(PRUNED_PARAMS, int out_cap, void* scratch, int* row,
   unsigned long long* status = static_cast<unsigned long long*>(scratch);
   unsigned int* ticket = reinterpret_cast<unsigned int*>(status + n_tiles);
   return static_cast<int>(with_pred(
-      spec, n_spec, state, labels, n_labels, n_parents / k, [&](auto pred) {
+      spec, n_spec, t, labels, n_labels, [&](auto pred) {
+        using P = decltype(pred);
         with_mode(conn_mode, [&](auto mode) {
-          extend_pruned_1p_kernel<decltype(mode)::value>
-              <<<n_tiles, kTile, 0, st>>>(t, cand_cap, pk, pred, out_cap,
-                                          status, ticket, row, u, state_out,
-                                          n_surv);
+          auto kernel = extend_pruned_1p_kernel<decltype(mode)::value, P>;
+          cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               surv_bytes<P>());
+          kernel<<<n_tiles, kTile, surv_bytes<P>(), st>>>(
+              t, cand_cap, pk, pred, out_cap, status, ticket, row, u,
+              state_out, n_surv);
         });
       }));
 }

@@ -183,7 +183,7 @@ def _pruned_args(name, col_idx, offsets, starts, emb_flat, vlo, vhi, bits,
         check_int32(name, labels=labels, offsets=offsets)
     elif labels is not None:
         raise ValueError(f"{name}: an unlabeled spec reads no labels")
-    words = spec.words()
+    words = spec.slices(k) if spec.kind == "branches" else spec.words()
     c_args = (*map(_ptr, (offsets, starts, emb_flat, vlo, vhi, col_idx,
                           bits)),
               None if row_slot is None else _ptr(row_slot),

@@ -393,3 +393,53 @@ def test_mixed_rows_name_each_kernel_and_the_probe():
     # the budget is a quarter of RMAT-16's full pack: 65,536 rows of 2,048
     # words
     assert smoke.MIXED_BUDGET16 * 4 == 65536 * 2048 * 4
+
+
+# -- the build phase: registers and spills per pruned instantiation
+
+PTXAS_REPORT = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__fa0614d1_9_extend_cu_6218152323extend_pruned_1p_kernelILi0ENS_10BranchPredEEEvNS_6TablesEiNS_4PackET0_iPyPjPiS7_S7_S7_' for 'sm_90a'
+ptxas info    : Function properties for _ZN41_GLOBAL__N__fa0614d1_9_extend_cu_6218152323extend_pruned_1p_kernelILi0ENS_10BranchPredEEEvNS_6TablesEiNS_4PackET0_iPyPjPiS7_S7_S7_
+    16 bytes stack frame, 16 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 24960 bytes smem
+ptxas info    : Compile time = 321.751 ms
+ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__fa0614d1_9_extend_cu_6218152319extend_count_kernelILi2ENS_8ConjPredILb1EEEEEvNS_6TablesEiNS_4PackET0_Pi' for 'sm_90a'
+ptxas info    : Function properties for _ZN41_GLOBAL__N__fa0614d1_9_extend_cu_6218152319extend_count_kernelILi2ENS_8ConjPredILb1EEEEEvNS_6TablesEiNS_4PackET0_Pi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 1 barriers, 20496 bytes smem
+ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__fa0614d1_9_extend_cu_6218152318extend_edge_kernelILi1EEEvNS_10EdgeTablesEiPiS2_S2_S2_S2_' for 'sm_90a'
+ptxas info    : Function properties for _ZN41_GLOBAL__N__fa0614d1_9_extend_cu_6218152318extend_edge_kernelILi1EEEvNS_10EdgeTablesEiPiS2_S2_S2_S2_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 26 registers, used 0 barriers, 560 bytes cmem[0]
+"""
+
+
+def test_build_report_gives_each_instantiations_resources():
+    smoke = _smoke()
+    res = smoke.instance_resources(PTXAS_REPORT)
+    assert res == {
+        ("extend_pruned_1p", "branches", "search"): dict(
+            registers=40, spill_stores=16, spill_loads=12, stack=16,
+            smem=24960),
+        ("extend_count", "labeled", "mixed"): dict(
+            registers=32, spill_stores=0, spill_loads=0, stack=0,
+            smem=20496)}
+    from repro_torch.kernels.build import kernel_resources
+    edge = [v for name, v in kernel_resources(PTXAS_REPORT).items()
+            if "extend_edge" in name]
+    assert edge == [dict(registers=26, spill_stores=0, spill_loads=0,
+                         stack=0, smem=0)]
+
+
+def test_instance_of_names_the_launched_instantiation():
+    from repro_torch.core.api import CANONICAL, PredicateSpec
+    smoke = _smoke()
+    labeled = PredicateSpec(required=1, label=1)
+    assert labeled.needs_labels
+    assert smoke.instance_of("extend_scatter", dict(
+        spec=labeled, conn_mode="bitmap")) == (
+        "extend_scatter", "labeled", "bitmap")
+    assert smoke.instance_of("extend_count", dict(
+        spec=CANONICAL, conn_mode="mixed")) == (
+        "extend_count", "canonical", "mixed")

@@ -23,7 +23,7 @@ from repro_torch.core.api import (CANONICAL, PredicateSpec, make_ctx,
 from repro_torch.core.apps.psm import make_set_branch_spec
 from repro_torch.core.patterns import compile_pattern_set, motif_patterns
 from repro_torch.graph import generators as TG
-from repro_torch.graph.csr import pack_adjacency
+from repro_torch.graph.csr import from_edge_list, pack_adjacency
 from repro_torch.kernels.extend_fused import ops, ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
@@ -334,6 +334,154 @@ def test_mixed_kernels_refuse_a_bad_pack(cuda):
     with pytest.raises(ValueError, match="device"):
         ops.extend_count(*args, bits, **{**kw,
                                          "row_slot": kw["row_slot"].cpu()})
+
+
+# -- the parent window of K2 and K4: a CTA stages the parent tables of its
+# live slots in shared memory, or, when their span overflows the window,
+# reads them from global memory with each search bounded to the span
+
+WINDOW = 1024        # kWin in csrc/extend.cu: parent entries a CTA stages
+N_WIN = 3000         # vertices of the window tests' graph
+
+
+def _window_graph(device):
+    """An ER graph on N_WIN vertices with a hub (vertex 0) adjacent to all
+    the others."""
+    rng = np.random.default_rng(11)
+    er = rng.integers(0, N_WIN, (30000, 2))
+    hub = np.stack([np.zeros(N_WIN - 1, np.int64), np.arange(1, N_WIN)], 1)
+    return from_edge_list(np.concatenate([er, hub]), n_vertices=N_WIN,
+                          device=device)
+
+
+def _window_tables(g, case: str, k: int):
+    """Parent tables of ``case``: "overflow" (live rows 400 rows apart,
+    then a dense run), "hub" (a fifth of the slots on the hub, 2,999
+    candidates each) or random rows."""
+    rng = np.random.default_rng(12)
+    n_rows = 6000 if case == "overflow" else 400
+    emb = rng.integers(0, N_WIN, (n_rows, k))
+    if case == "overflow":
+        alive = (np.arange(n_rows) % 400 == 0)
+        alive[3000:3200] = True
+        emb[~alive] = -1
+    elif case == "hub":
+        emb[rng.random(emb.shape) < 0.2] = 0
+    emb = torch.from_numpy(emb.astype(np.int32)).to(g.col_idx.device)
+    embc = emb.clamp(0, N_WIN - 1).reshape(-1).long()
+    vlo, vhi = g.row_ptr[embc], g.row_ptr[embc + 1]
+    deg = torch.where(emb.reshape(-1) >= 0, vhi - vlo, 0).to(torch.int32)
+    offsets = torch.cumsum(deg, 0, dtype=torch.int32)
+    return (g.col_idx, offsets, offsets - deg, emb.reshape(-1).contiguous(),
+            vlo, vhi)
+
+
+def _spans(offsets, k: int, cand_cap: int, tile: int) -> np.ndarray:
+    """Per tile of ``tile`` slots, the parent entries its live slots' rows
+    span (what a CTA would stage)."""
+    off = offsets.cpu().numpy()
+    end = min(cand_cap, int(off[-1]))
+    s0 = np.arange(0, end, tile)
+    s1 = np.minimum(s0 + tile, end) - 1
+    first = np.searchsorted(off, s0, side="right") // k
+    last = np.searchsorted(off, s1, side="right") // k
+    return (last + 1 - first) * k
+
+
+def _branches32(k: int, n_rows: int, device):
+    """A random level of 32 branches over k slots (parent bits 0..31) and a
+    random state column of full 32-bit words."""
+    from repro_torch.core.api import Branch, BranchSetSpec
+    rng = np.random.default_rng(13)
+    masks = lambda: int(rng.integers(0, 1 << k)) & int(rng.integers(0, 1 << k))
+    spec = BranchSetSpec(tuple(
+        Branch(parent=b, anchor=int(rng.integers(0, k)), required=masks(),
+               forbidden=masks() & ~1, distinct=masks(), smaller=masks(),
+               first_pair=bool(rng.random() < 0.2)) for b in range(32)))
+    state = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, n_rows)
+                             .astype(np.int32)).to(device)
+    return spec, state
+
+
+def _window_modes(g):
+    """Per probe mode: (bits, keyword arguments); mixed reads a partial
+    pack of a third of the rows, the hub's among them."""
+    n_words = -(-N_WIN // 32)
+    full = pack_adjacency(g)
+    part = pack_adjacency(g, max_bytes=1000 * n_words * 4)
+    assert full.full and not part.full and int(part.row_slot[0]) >= 0
+    zeros = torch.zeros(1, dtype=torch.int32, device=g.col_idx.device)
+    return {"search": (zeros, dict(n_words=1, conn_mode="search")),
+            "bitmap": (full.words.reshape(-1),
+                       dict(n_words=full.n_words, conn_mode="bitmap")),
+            "mixed": (part.words.reshape(-1), dict(
+                n_words=part.n_words, conn_mode="mixed",
+                row_slot=part.row_slot, n_rows=part.n_packed,
+                n_cols=part.n_cols))}
+
+
+def _hold_pruned(args, bits, kw, out_caps):
+    """The pair and extend_pruned_1p, one launch each per ``out_cap``,
+    against the plain versions bit for bit."""
+    for out_cap in out_caps:
+        kwo = dict(kw, out_cap=out_cap)
+        ops.reset_counts()
+        pair = ops.extend_pruned(*args, bits, **kwo)
+        one = ops.extend_pruned_1p(*args, bits, **kwo)
+        torch.cuda.synchronize()
+        assert ops.mode_launches()[kw["conn_mode"]] == 3
+        assert sum(f.calls for f in ops.PLAIN_VERSIONS) == 0
+        counts = ref.extend_count_ref(*args, bits, **kw)
+        incl = torch.cumsum(counts, 0, dtype=torch.int32)
+        want = ref.extend_scatter_ref(*args, bits, incl - counts, **kwo)
+        for a, b in zip(pair, (*want, incl[-1], counts)):
+            assert torch.equal(a, b)
+        for a, b in zip(one, ref.extend_pruned_1p_ref(*args, bits, **kwo)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("conn_mode", ["search", "bitmap", "mixed"])
+@pytest.mark.parametrize("case", ["overflow", "hub", "ragged", "branches32",
+                                  "out_cap"])
+def test_parent_window_kernels_match_plain(cuda, case, conn_mode):
+    """K2 (count, scatter) and K4 against their plain versions where the
+    window is tested: a tile whose parent span overflows it (most parents
+    without candidates), a hub whose candidates cross several tiles and K4
+    sub-tiles (a window of one row), totals and cand_cap off the tile, a
+    32-branch set at k = 5, and a K4 launch that overflows out_cap; each
+    with the clique, the canonical test and a 32-branch set."""
+    g = _window_graph(cuda)
+    k = 5 if case == "branches32" else 3
+    args = _window_tables(g, "ragged" if case in ("branches32", "out_cap")
+                          else case, k)
+    total = int(args[1][-1])
+    bits, mode_kw = _window_modes(g)[conn_mode]
+    n_steps = int(np.ceil(np.log2(g.max_degree + 1)))
+    spec32, state = _branches32(k, args[1].shape[0] // k, cuda)
+    specs = [(spec32, state)]
+    if case != "branches32":
+        specs += [(resolve_kernel_predicate(make_cf_app(4), 3), None),
+                  (CANONICAL, None)]
+    cand_caps = [total + 300, total - 333] if case == "ragged" else \
+        [total + 300]
+    for cand_cap in cand_caps:
+        assert cand_cap % ref.BLOCK_C and total % ref.BLOCK_C
+        spans = _spans(args[1], k, cand_cap, ref.BLOCK_C)
+        if case == "overflow":      # both paths: staged and bounded global
+            assert spans.max() > WINDOW >= spans.min()
+        if case == "hub":           # a hub row spans 2,048-slot K4 tiles
+            assert int((args[1] - args[2]).max()) > 4 * ref.BLOCK_C
+            assert spans.min() == k
+        for spec, st in specs:
+            kw = dict(k=k, cand_cap=cand_cap, n_steps=n_steps,
+                      n_vertices=N_WIN, spec=spec, state=st, **mode_kw)
+            n = int(ref.extend_pruned_1p_ref(*args, bits, out_cap=1,
+                                             **kw)[-1])
+            assert n > 0
+            out_caps = [n + 5]
+            if case == "out_cap":
+                out_caps += [n // 3, 1]
+            _hold_pruned(args, bits, kw, out_caps)
 
 
 PACKED_MINERS = {
