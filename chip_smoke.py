@@ -23,12 +23,21 @@ Phases (any failure raises, and the script exits non-zero):
               replayed with half its ``out_cap`` (overflow).  Then each
               kernel and its plain version are timed with CUDA events on
               the arguments of the RMAT-16 TC level-2 launches, beside the
-              kernel's memory bound.
+              kernel's memory bound, and ``extend_candidates`` also on
+              4-CF's level-3 launch (2^30 slots, its plain version in
+              pieces), each K3 and K5 timing with its live slots, its
+              uniform-tail slots (the constant tail the kernel stores
+              without a search) and its registers and spills.
 4. main path — ``Miner(rmat(16, 16, seed=0), app, backend="cuda")`` runs
               cold, then warm, for TC and 4-CF.  Each count must equal an
               independent count computed here on the host with scipy, every
               kernel must have launched during the run, and no plain version
-              may have run.  Then a warm-run profile of each.
+              may have run; K3's launches are also counted by (k,
+              cand_cap), and its row at 4-CF's level 3 gives those at that
+              shape.  Then the cold and warm times of five fresh Miners of
+              each (``[e2e]``: median, least and largest; the same after
+              the main paths of phases 5, 7 and 8 for 3-FSM, ``cuda-1p``,
+              3-MC and 4-MC), and a warm-run profile of each.
 5. fsm      — 3-FSM (``make_fsm_app(3, min_support, max_patterns=64)``),
               edge-induced, on the edge kernel ``extend_edge``.  Checked
               runs (every launch against its plain version, cold and warm)
@@ -127,6 +136,8 @@ repository around this file, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import json
 import re
@@ -145,6 +156,9 @@ REPLACES = {"extend_candidates": f"{TPU_KERNEL}:65",
             "extend_count": f"{TPU_KERNEL}:505",
             "extend_scatter": f"{TPU_KERNEL}:519"}
 EDGE_REPLACES = {"extend_edge": f"{TPU_KERNEL}:658"}
+# K3's second timed launch: 4-CF's level 3 on RMAT-16, 2^30 slots
+K3_CF_ROW = "extend_candidates:4-cf-l3"
+K3_ROWS = {K3_CF_ROW: REPLACES["extend_candidates"]}
 LOOKBACK_REPLACES = {"extend_pruned_1p": f"{TPU_KERNEL}:322"}
 INTERSECT_REPLACES = {
     "intersect_count": "src/repro/kernels/intersect/intersect.py:30"}
@@ -218,6 +232,70 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+# extend_candidates calls of the counted main paths that the kernels' JSON
+# counts (phases 4, 7 and 8) by (k, cand_cap): the launches at each K3
+# timing row's shape
+K3_SHAPES: collections.Counter = collections.Counter()
+
+
+@contextlib.contextmanager
+def counting_k3_shapes():
+    """While active, each ``extend_candidates`` call adds one to
+    ``K3_SHAPES[(k, cand_cap)]``; the call runs as is."""
+    from repro_torch.kernels.extend_fused import ops
+    fn = ops.extend_candidates
+
+    def run(*a, **kw):
+        K3_SHAPES[kw["k"], kw["cand_cap"]] += 1
+        return fn(*a, **kw)
+    ops.extend_candidates = run
+    try:
+        yield
+    finally:
+        ops.extend_candidates = fn
+
+
+# Fresh Miners over which a main path's cold and warm times are sampled
+E2E_SAMPLES = 5
+
+
+def e2e_samples(graph, name: str, app, want: int, backend: str,
+                n: int = E2E_SAMPLES, **miner_kw) -> dict:
+    """Cold then warm ``Miner.run`` wall times of ``n`` fresh Miners of
+    ``app`` on ``backend``, each made after emptying the allocator's cache
+    as the counted main paths do; every count must be ``want``.  Logs and
+    returns each run's median, least and largest time."""
+    import statistics
+
+    import torch
+    from repro_torch.core import Miner
+
+    on_card = graph.device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    times: dict = {"cold": [], "warm": []}
+    for _ in range(n):
+        if on_card:
+            torch.cuda.empty_cache()
+        miner = Miner(graph, app, backend=backend, device=graph.device,
+                      **miner_kw)
+        for run in ("cold", "warm"):
+            sync()
+            t0 = time.perf_counter()
+            count = miner.run().count
+            sync()
+            times[run].append(time.perf_counter() - t0)
+            if count != want:
+                raise AssertionError(f"{name} {backend} {run}: {count} != "
+                                     f"{want}")
+        del miner
+    out = {run: (statistics.median(t), min(t), max(t))
+           for run, t in times.items()}
+    log(f"[e2e] {name} {backend}: " + ", ".join(
+        f"{run} median {med:.4f} s ({lo:.4f}-{hi:.4f})"
+        for run, (med, lo, hi) in out.items()) + f" over {n} Miners")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Kernel launches held against their plain versions
 
@@ -253,6 +331,8 @@ class KernelChecks:
     checked.  Each ``extend_edge`` launch also records ``(cand_cap,
     candidates, survivors, masked)`` in ``edge_levels``, ``masked``
     counting the live candidates that the app's vertex mask dropped.
+    While ``largest`` names an app, its ``extend_candidates`` launch with
+    the largest ``cand_cap`` is kept as ``extend_candidates:<app>``.
     The float kernels (``FLOAT_KERNELS``) are held to a stated tolerance
     by their checks, which raise themselves; ``err`` keeps the largest
     absolute difference.  ``plain_ms`` sums the CUDA-event times of the
@@ -272,6 +352,7 @@ class KernelChecks:
         self.edge_levels: list[tuple[int, int, int, int]] = []
         self.kept: dict = {}
         self.keep = False
+        self.largest: str | None = None
         self.plain_ms = 0.0
 
     def _plain(self, a, fn):
@@ -311,6 +392,11 @@ class KernelChecks:
             self.modes.add(kw.get("conn_mode", "-"))
             if self.keep and name not in self.kept:
                 self.kept[name] = (a, kw)
+            key = f"{name}:{self.largest}"
+            if name == "extend_candidates" and self.largest and (
+                    key not in self.kept
+                    or kw["cand_cap"] > self.kept[key][1]["cand_cap"]):
+                self.kept[key] = (a, kw)
             if err and name not in FLOAT_KERNELS:
                 raise AssertionError(f"{name} ({int_args(kw)}) differs "
                                      f"from its plain version by {err}")
@@ -325,7 +411,8 @@ class KernelChecks:
         from repro_torch.kernels.extend_fused import ref
         err = 0
         for lo, hi in self._ranges(kw["cand_cap"]):
-            want = ref.extend_candidates_ref(*a, **kw, slots=(lo, hi))
+            want = self._plain(a, lambda: ref.extend_candidates_ref(
+                *a, **kw, slots=(lo, hi)))
             err = max(err, max_abs_err([g[lo:hi] for g in got], want))
         return err
 
@@ -372,7 +459,8 @@ class KernelChecks:
         from repro_torch.kernels.extend_fused import ref
         err = 0
         for lo, hi in self._ranges(kw["cand_cap"]):
-            want = ref.extend_edge_ref(*a, **kw, slots=(lo, hi))
+            want = self._plain(a, lambda: ref.extend_edge_ref(
+                *a, **kw, slots=(lo, hi)))
             err = max(err, max_abs_err([g[lo:hi] for g in got], want))
         u, vmask = got[2], a[9]
         masked = (0 if vmask is None else
@@ -477,13 +565,15 @@ class KernelChecks:
 def checked_runs(graph, apps, expected: dict, label: str,
                  pack_max_bytes: int = 4 << 20, keep: str | None = None,
                  chunk: int = 1 << 25, backend: str = "cuda",
-                 names=tuple(REPLACES), **miner_kw) -> KernelChecks:
+                 names=tuple(REPLACES), largest: str | None = None,
+                 **miner_kw) -> KernelChecks:
     """Cold then warm ``Miner.run`` of each app on ``backend``, on the
     graph's device, every launch of the kernels ``names`` held against its
-    plain version, and each count against ``expected``.  ``keep`` names the
-    app whose first launch of each kernel keeps its arguments for
-    timing; ``miner_kw`` are further ``Miner`` options (``relabel``,
-    ``pack_partial``)."""
+    plain version, and each count against ``expected``.
+    ``keep`` names the app whose first launch of each kernel keeps its
+    arguments for timing, ``largest`` the app whose largest
+    ``extend_candidates`` launch does; ``miner_kw`` are further ``Miner``
+    options (``relabel``, ``pack_partial``)."""
     import torch
     from repro_torch.core import Miner
 
@@ -494,6 +584,7 @@ def checked_runs(graph, apps, expected: dict, label: str,
     with checks:
         for name, app in apps:
             checks.keep = name == keep
+            checks.largest = name if name == largest else None
             miner = Miner(graph, app, backend=backend,
                           pack_max_bytes=pack_max_bytes, device=graph.device,
                           **miner_kw)
@@ -559,6 +650,12 @@ RESOURCE_KEYS = ("registers", "spill_stores", "spill_loads")
 # (wrapper, predicate, mode) -> build.kernel_resources' entry, filled by
 # the build phase
 RESOURCES: dict = {}
+# The enumerators' kernels in the same report: K3, and K5 by its edge count
+ENUM_SYMBOL = re.compile(
+    r"(extend_candidates)_kernel|(extend_edge)_kernelILi(\d)E")
+# (wrapper, E or None) -> build.kernel_resources' entry, filled by the
+# build phase
+ENUM_RESOURCES: dict = {}
 
 
 def instance_resources(report: str) -> dict:
@@ -577,6 +674,38 @@ def instance_resources(report: str) -> dict:
     return out
 
 
+def enumerator_resources(report: str) -> dict:
+    """K3's and K5's kernels' resources in extend.cu's ``-Xptxas -v``
+    report, by (wrapper, E), E None for K3."""
+    from repro_torch.kernels.build import kernel_resources
+    out = {}
+    for name, res in kernel_resources(report).items():
+        if m := ENUM_SYMBOL.search(name):
+            key = ((m.group(1), None) if m.group(1)
+                   else (m.group(2), int(m.group(3))))
+            out[key] = res
+    return out
+
+
+def enumerator_of(name: str, kw: dict) -> tuple:
+    """The ENUM_RESOURCES key of a K3 or K5 launch."""
+    return (name, kw["n_slots"] - 1 if name == "extend_edge" else None)
+
+
+def tail_slots(name: str, a, kw) -> int:
+    """Slots of a K3 or K5 launch in its constant tail, where every output
+    is one value: K5's from the total on; K3's from where, past the total,
+    the last parent's CSR pointer reaches its clamp at m - 1
+    (``uniform_from`` in extend.cu)."""
+    cand_cap = kw["cand_cap"]
+    if name == "extend_edge":
+        return max(0, cand_cap - int(a[2][-1]))
+    col, offsets, starts, vlo = a[0], a[1], a[2], a[4]
+    start = max(int(offsets[-1]),
+                int(starts[-1]) + col.shape[0] - 1 - int(vlo[-1]))
+    return max(0, cand_cap - start)
+
+
 def instance_of(name: str, kw: dict) -> tuple:
     """The instantiation a pruned launch with keyword arguments ``kw``
     runs, as ``ops.INSTANCE_LAUNCHES`` keys it."""
@@ -585,6 +714,8 @@ def instance_of(name: str, kw: dict) -> tuple:
             kw["conn_mode"])
 
 
+# The enumerators, each with the index of its offsets among its arguments
+ENUM_KERNELS = {"extend_candidates": 1, "extend_edge": 2}
 # Candidate slots up to which a timed plain version runs in one call; a
 # larger pruned launch's plain version runs (and is timed) in pieces of
 # this many slots, each piece compared with its window of the kernel's
@@ -611,14 +742,15 @@ def time_kernels(kept: dict) -> dict:
         a, kw = kept[name]
         wrapper = getattr(wrapper_module(name), name)
         ms, got = cuda_ms(lambda: wrapper(*a, **kw), reps=10)
-        if name in PRUNED_REPLACES and kw["cand_cap"] > PLAIN_WHOLE:
+        if (name in PRUNED_REPLACES or name in ENUM_KERNELS) and \
+                kw["cand_cap"] > PLAIN_WHOLE:
             pieces = KernelChecks(PLAIN_WHOLE, names=())
-            if name == "extend_count":
-                err = pieces._check_extend_count(a, kw, got)
-            elif name == "extend_scatter":
+            if name == "extend_scatter":
                 err = pieces._scatter_err(a, kw, got, kw["out_cap"])
-            else:
+            elif name == "extend_pruned_1p":
                 err = pieces._lookback_err(a, kw, got, kw["out_cap"])
+            else:
+                err = getattr(pieces, f"_check_{name}")(a, kw, got)
             plain_ms = pieces.plain_ms
         else:
             plain_ms, want = cuda_ms(lambda: plain[name](*a, **kw), reps=2)
@@ -643,12 +775,38 @@ def time_kernels(kept: dict) -> dict:
                      f"slots/s, {' '.join(inst[1:])}: {res['registers']} "
                      f"registers, spills {res['spill_stores']} / "
                      f"{res['spill_loads']} B")
+        elif name in ENUM_KERNELS:
+            # live slots: below cand_cap and the true total; tail slots:
+            # those whose outputs are the one constant of the tail
+            live = min(kw["cand_cap"], int(a[ENUM_KERNELS[name]][-1]))
+            tail = tail_slots(name, a, kw)
+            res = ENUM_RESOURCES.get(enumerator_of(name, kw),
+                                     dict.fromkeys(RESOURCE_KEYS))
+            rows[name].update(live_slots=live, tail_slots=tail, **{
+                key: res[key] for key in RESOURCE_KEYS})
+            extra = (f", {live} live slots, {tail} uniform-tail slots, "
+                     f"{res['registers']} registers, spills "
+                     f"{res['spill_stores']} / {res['spill_loads']} B")
         log(f"[timing] {name} ({int_args(kw)}): {ms:.3f} ms (plain "
             f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms from {nbytes} B), "
             f"max_abs_err {err}{extra}")
         if err:
             raise AssertionError(f"{name} differs from its plain version")
         torch.cuda.empty_cache()
+    return rows
+
+
+def time_with_k3_l3(kept: dict) -> dict:
+    """``time_kernels`` on ``kept``, with K3's 4-CF launch (kept as
+    ``extend_candidates:4-cf``, its level 3) timed as a row of its own,
+    ``K3_CF_ROW``, which also keeps its ``shape`` (k, cand_cap)."""
+    cf = kept.pop("extend_candidates:4-cf")
+    if cf[1]["k"] != 3:
+        raise AssertionError(f"4-cf's largest K3 launch is at k={cf[1]['k']}")
+    rows = time_kernels(kept)
+    rows[K3_CF_ROW] = time_kernels({"extend_candidates": cf})[
+        "extend_candidates"]
+    rows[K3_CF_ROW]["shape"] = (3, cf[1]["cand_cap"])
     return rows
 
 
@@ -1220,6 +1378,10 @@ class ArgsKeeper:
             setattr(ops, name, fn)
 
 
+# The [mc] main paths whose cold and warm times are also sampled
+E2E_MC = ("3-mc rmat15", "4-mc rmat10")
+
+
 def mc_phase(timing: dict, launches: dict) -> dict:
     """The [mc] phase: checked runs, the counted main path, the timing of
     the branch-set + state variant.  Returns the checks' largest errors by
@@ -1309,14 +1471,18 @@ def mc_phase(timing: dict, launches: dict) -> dict:
         log(f"[check] {name}: {time.perf_counter() - t0:.1f} s")
         kept = {}
         for backend in ("cuda", "cuda-1p"):
-            got, instances, levels = mc_main(graph, name, app, count, p_map,
-                                             backend, keep_levels=True)
+            with counting_k3_shapes():
+                got, instances, levels = mc_main(graph, name, app, count,
+                                                 p_map, backend,
+                                                 keep_levels=True)
             for k, n in got.items():
                 launches[k] = launches.get(k, 0) + n
             for (wrapper, kind, _), n in instances.items():
                 if f"{wrapper}:{kind}" in kind_launches:
                     kind_launches[f"{wrapper}:{kind}"] += n
             kept[backend] = levels
+            if name in E2E_MC:
+                e2e_samples(graph, name, app, count, backend)
         n_levels = levels_equal(kept["cuda"], kept["cuda-1p"])
         log(f"[main] {name}: cuda and cuda-1p levels equal (vid, idx, state) "
             f"on {n_levels} levels")
@@ -1883,14 +2049,22 @@ def main() -> int:
         log(f"[build] {src.name}:\n{report.strip()}")
         if src == ops.SOURCE:
             RESOURCES.update(instance_resources(report))
+            ENUM_RESOURCES.update(enumerator_resources(report))
     log(f"[build] {time.perf_counter() - t0:.1f} s")
     for (name, pred, mode), res in sorted(RESOURCES.items()):
         log(f"[build] {name} {pred} {mode}: {res['registers']} registers, "
             f"spills {res['spill_stores']} / {res['spill_loads']} B, stack "
             f"{res['stack']} B, smem {res['smem']} B")
-    if len(RESOURCES) != 45:
-        raise AssertionError(f"{len(RESOURCES)} pruned instantiations in "
-                             "the build report, not 45")
+    for (name, e), res in sorted(ENUM_RESOURCES.items(),
+                                 key=lambda kv: (kv[0][0], kv[0][1] or 0)):
+        log(f"[build] {name}{'' if e is None else f' E={e}'}: "
+            f"{res['registers']} registers, spills {res['spill_stores']} / "
+            f"{res['spill_loads']} B, stack {res['stack']} B, smem "
+            f"{res['smem']} B")
+    if len(RESOURCES) != 45 or len(ENUM_RESOURCES) != 8:
+        raise AssertionError(f"{len(RESOURCES)} pruned instantiations and "
+                             f"{len(ENUM_RESOURCES)} enumerators in the "
+                             "build report, not 45 and 8")
 
     # every kernel launch of the main path against its plain version: at
     # scale 12 with the full pack (bitmap) and without it (search), then at
@@ -1915,15 +2089,20 @@ def main() -> int:
         f"({time.perf_counter() - t0:.1f} s)")
     expected = {"tc": tri, "4-cf": c4}
     t0 = time.perf_counter()
-    checks16 = checked_runs(g16, tc_cf, expected, "rmat16", keep="tc")
+    checks16 = checked_runs(g16, tc_cf, expected, "rmat16", keep="tc",
+                            largest="4-cf")
     log(f"[check] rmat16: {time.perf_counter() - t0:.1f} s")
     if checks16.overflow_cases < 1:
         raise AssertionError("no overflow case was checked")
-    timing = time_kernels(checks16.kept)
+    # K3 at TC's level 2 with the kernels it feeds, then at 4-CF's level 3
+    timing = time_with_k3_l3(checks16.kept)
     checks16.kept.clear()
     torch.cuda.empty_cache()
 
-    launches = main_path(g16, expected)
+    with counting_k3_shapes():
+        launches = main_path(g16, expected)
+    for name, app in tc_cf:
+        e2e_samples(g16, name, app, expected[name], "cuda")
     profile_warm(g16, make_tc_app(), "rmat16 tc")
     profile_warm(g16, make_cf_app(4), "rmat16 4-cf")
 
@@ -1961,8 +2140,11 @@ def main() -> int:
         f"arguments: {pair_ms:.3f} ms")
     del a, kw
     torch.cuda.empty_cache()
-    for k, n in main_path(g16, expected, backend="cuda-1p").items():
-        launches[k] = launches.get(k, 0) + n
+    with counting_k3_shapes():
+        for k, n in main_path(g16, expected, backend="cuda-1p").items():
+            launches[k] = launches.get(k, 0) + n
+    for name, app in tc_cf:
+        e2e_samples(g16, name, app, expected[name], "cuda-1p")
     profile_warm(g16, make_cf_app(4), "rmat16 4-cf cuda-1p",
                  backend="cuda-1p")
     log(f"[cuda-1p] phase {time.perf_counter() - t_phase:.1f} s")
@@ -2012,6 +2194,8 @@ def main() -> int:
     checks15.kept.clear()
     torch.cuda.empty_cache()
     launches["extend_edge"] = fsm_main_path(g15, FSM_SUPPORT, want15)
+    e2e_samples(g15, "3-fsm", make_fsm_app(3, FSM_SUPPORT, max_patterns=64),
+                FSM_FREQUENT, "cuda")
     profile_warm(g15, make_fsm_app(3, FSM_SUPPORT, max_patterns=64),
                  "rmat15 3-fsm")
     log(f"[fsm] phase {time.perf_counter() - t_fsm:.1f} s")
@@ -2053,9 +2237,18 @@ def main() -> int:
     kernels = []
     errs = {**checks16.err, **checks15.err, **checks_tc.err, **checks_1p.err,
             **checks_lm.err, "sorted_segment_sum": seg_err}
+    errs[K3_CF_ROW] = errs["extend_candidates"]
+    # the K3 row at 4-CF's level 3 counts the launches at its shape
+    if sum(K3_SHAPES.values()) != launches["extend_candidates"]:
+        raise AssertionError(f"K3 launches by shape {dict(K3_SHAPES)}, not "
+                             f"{launches['extend_candidates']} in all")
+    launches[K3_CF_ROW] = K3_SHAPES[timing[K3_CF_ROW]["shape"]]
+    log(f"[main] extend_candidates launches by (k, cand_cap): "
+        f"{dict(K3_SHAPES)}")
     for name, err in {**mc_errs, **mixed_errs}.items():
         errs[name] = max(errs.get(name, 0), err)
-    for name, replaces in {**REPLACES, **EDGE_REPLACES, **LOOKBACK_REPLACES,
+    for name, replaces in {**REPLACES, **K3_ROWS, **EDGE_REPLACES,
+                           **LOOKBACK_REPLACES,
                            **MC_REPLACES, **MIXED_REPLACES,
                            **INTERSECT_REPLACES, **FLASH_REPLACES,
                            **SEGSUM_REPLACES}.items():
@@ -2070,8 +2263,8 @@ def main() -> int:
             "bound_ms": t["bound_ms"],
             "bound_by": t.get("bound_by", "bytes"),
             "library_ms": t.get("library_ms"),
-            **{key: t[key] for key in ("live_slots", *RESOURCE_KEYS)
-               if key in t}})
+            **{key: t[key] for key in ("live_slots", "tail_slots",
+                                       *RESOURCE_KEYS) if key in t}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -110,11 +110,31 @@
 //           dependent load (4 B per parent slot, from L1/L2) before each
 //           probe; a hit saves the search's log2(degree) dependent loads.
 //
-// extend_edge writes five int32 outputs per candidate slot (20 B), which is
-// its compulsory traffic and its bound: the parent tables are 16 B per slot
-// parent, and the row's E edge uids and their endpoints are read per slot
-// from L1/L2.  One thread per slot, E a template parameter, stores
-// coalesced.
+// The enumerators, extend_candidates (K3) and extend_edge (K5, E a template
+// parameter), write every slot below cand_cap: 16 B (K3) or 20 B (K5) a
+// slot, which with the parent tables is their compulsory traffic and their
+// bound.  Both take several 512-slot tiles a CTA under the pruned kernels'
+// parent window (with_window; K5's slot-parents, E + 1 a row, as the parent
+// tables, and a staged window also stages its rows' E edge uids and their
+// endpoints, so the canonical-edge test reads shared memory).  On an H100
+// K3 with sixteen tiles beat eight by 1-2% and four by 5-9%; K5's times
+// with four, eight and sixteen lie within their run-to-run spread (it
+// keeps eight), and its window gains 12-25% over each lane searching the
+// whole prefix sum.  Both skip what a slot's position alone decides:
+//   the dead tail  past the total every K5 slot carries the same constants
+//                (the last parent's row and s, -1, -1, 0) and every K3 slot
+//                the clipped last parent; once that parent's CSR pointer
+//                reaches its clamp at m - 1 (uniform_from), every K3 output
+//                is one constant too.  A CTA wholly in that tail evaluates
+//                the one slot (K3: on one thread; K5: nothing) and only
+//                stores it, as int4; the CTA that straddles the bound runs
+//                per lane.
+//                At the main paths' cand_caps, powers of two, the tail
+//                holds 17-46% of the slots.
+//   the source slot  K3's bit for the slot a candidate came from needs no
+//                search when the CSR pointer lies inside that slot's own
+//                row: u is then an entry of the row, which its search (the
+//                rows are sorted) would find.  One of k searches goes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -129,7 +149,10 @@ constexpr int kPairTiles = 8;         // 512-slot tiles per CTA, the pair
 constexpr int kPairSpan = kPairTiles * kTile;
 constexpr int k1pTiles = 4;           // 512-slot tiles per CTA, 1p
 constexpr int k1pSpan = k1pTiles * kTile;
-constexpr int kCandThreads = 256;     // threads per CTA in extend_candidates
+constexpr int kCandTiles = 16;        // 512-slot tiles per CTA, candidates
+constexpr int kCandSpan = kCandTiles * kTile;
+constexpr int kEdgeTiles = 8;         // 512-slot tiles per CTA, edge
+constexpr int kEdgeSpan = kEdgeTiles * kTile;
 // Parent entries a CTA stages in shared memory: the flat parent indices of
 // the rows its live slots (kPairTiles or k1pTiles tiles) come from, when
 // they number at most this.
@@ -175,17 +198,6 @@ struct Tables {
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
-}
-
-// First p with offsets[p] > slot, clipped to n_parents - 1 (extend.py:80-92).
-__device__ __forceinline__ int parent_of(const int* __restrict__ offsets,
-                                         int n_parents, int slot) {
-  int lo = 0, hi = n_parents;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (__ldg(offsets + mid) <= slot) lo = mid + 1; else hi = mid;
-  }
-  return lo < n_parents - 1 ? lo : n_parents - 1;
 }
 
 // Is u in col[lo:hi)?  A lower-bound search; it ends where the JAX kernel's
@@ -319,10 +331,10 @@ struct GlobalView {
   __device__ __forceinline__ const unsigned* tab() const { return w->tab; }
 };
 
-// Run body(view) for the CTA's live slots [s0, s1), s0 < s1, the view
-// reading the window when the span fits it and global memory otherwise;
-// the predicate's table is staged either way.  Every thread of the CTA
-// calls it (it synchronises).
+// Run body(view) for the CTA's slots [s0, s1), s0 < s1 (a slot past the
+// total has the last parent), the view reading the window when the span
+// fits it and global memory otherwise; the predicate's table is staged
+// either way.  Every thread of the CTA calls it (it synchronises).
 template <class P, bool State, class B>
 __device__ __forceinline__ void with_window(const Tables& t, const P& pred,
                                             Window<State>& w, int s0, int s1,
@@ -552,27 +564,100 @@ __device__ __forceinline__ Cand enumerate_slot(const Tables& t, const V& v,
   return pred.eval(v, t.k, row, src_slot, u, conn);
 }
 
-__global__ void __launch_bounds__(kCandThreads)
+// extend_candidates evaluates no predicate: its window stages the parent
+// tables alone.
+struct Unpruned {
+  template <class W> __device__ void stage(W&) const {}
+};
+
+// Port of _fused_extend_kernel (extend.py:65), one slot through view v:
+// (row, u, src_slot, conn), conn's bit j set when u lies in the CSR row of
+// the parent's slot j.
+template <class V>
+__device__ __forceinline__ int4 candidate(const Tables& t, const V& v,
+                                          int slot) {
+  int p = v.parent(slot);
+  int row = p / t.k;
+  int src = p - row * t.k;
+  int lo = v.vlo(p);
+  int raw = lo + (slot - v.start(p));
+  int ptr = clampi(raw, 0, t.m - 1);
+  int u = __ldg(t.col + ptr);
+  // when the pointer lies inside the source slot's own CSR row, u is an
+  // entry of that row, which its search (the rows are sorted) would find:
+  // that bit needs no search
+  bool own = raw == ptr && lo <= raw && raw < v.vhi(p);
+  int conn = 0;
+  for (int j = 0; j < t.k; ++j) {
+    int pj = row * t.k + j;
+    bool found = v.emb(pj) >= 0 && u >= 0
+        && ((j == src && own)
+            || csr_contains(t.col, v.vlo(pj), v.vhi(pj), u));
+    conn |= int(found) << j;
+  }
+  return make_int4(row, u, src, conn);
+}
+
+// The first slot from which every output of extend_candidates is one
+// constant.  Past the total, every slot's parent is the last, p =
+// n_parents - 1, and its CSR pointer vlo[p] + slot - starts[p] grows with
+// the slot until the clamp holds it at m - 1: from there on row, u =
+// col[m - 1], src_slot and conn no longer depend on the slot.
+__device__ __forceinline__ long long uniform_from(const Tables& t) {
+  int p = t.n_parents - 1;
+  long long total = __ldg(t.offsets + p);
+  long long clamped = (long long)__ldg(t.starts + p) + (t.m - 1)
+      - __ldg(t.vlo + p);
+  return total > clamped ? total : clamped;
+}
+
+// out[s0, s1) = x, by the CTA: int4 stores, then a scalar tail.  out + s0
+// is 16-byte aligned: s0 is a multiple of the CTA's span, and the wrappers
+// allocate every output.
+__device__ __forceinline__ void fill(int* out, int s0, int s1, int x) {
+  int n4 = (s1 - s0) >> 2;
+  int4* o4 = reinterpret_cast<int4*>(out + s0);
+  for (int i = threadIdx.x; i < n4; i += blockDim.x)
+    o4[i] = make_int4(x, x, x, x);
+  int b = s0 + 4 * n4;
+  if (b + (int)threadIdx.x < s1) out[b + threadIdx.x] = x;
+}
+
+// K3: a CTA takes kCandTiles consecutive 512-slot tiles under one parent
+// window, one slot per thread and tile; every slot below cand_cap is
+// written, those past the true total with the clipped last parent's
+// values, as the plain version writes them.  A CTA wholly in the uniform
+// tail (uniform_from) evaluates that one slot on one thread and only
+// stores it.
+__global__ void __launch_bounds__(kTile)
 extend_candidates_kernel(Tables t, int cand_cap, int* __restrict__ row_out,
                          int* __restrict__ u_out, int* __restrict__ slot_out,
                          int* __restrict__ conn_out) {
-  int slot = blockIdx.x * kCandThreads + threadIdx.x;
-  if (slot >= cand_cap) return;
-  int p = parent_of(t.offsets, t.n_parents, slot);
-  int row = p / t.k;
-  int ptr = clampi(t.vlo[p] + (slot - t.starts[p]), 0, t.m - 1);
-  int u = __ldg(t.col + ptr);
-  int conn = 0;
-  for (int j = 0; j < t.k; ++j) {
-    int pj = clampi(row * t.k + j, 0, t.n_parents - 1);
-    bool found = t.emb[pj] >= 0 && u >= 0
-        && csr_contains(t.col, t.vlo[pj], t.vhi[pj], u);
-    conn |= int(found) << j;
+  __shared__ Window<false> w;
+  __shared__ int4 tail;
+  int s0 = blockIdx.x * kCandSpan;
+  int s1 = min(cand_cap, s0 + kCandSpan);
+  if (s0 >= uniform_from(t)) {
+    if (threadIdx.x == 0) {
+      int p = t.n_parents - 1;
+      tail = candidate(t, GlobalView<false>{t, &w, p, p}, s0);
+    }
+    __syncthreads();
+    fill(row_out, s0, s1, tail.x);
+    fill(u_out, s0, s1, tail.y);
+    fill(slot_out, s0, s1, tail.z);
+    fill(conn_out, s0, s1, tail.w);
+    return;
   }
-  row_out[slot] = row;
-  u_out[slot] = u;
-  slot_out[slot] = p - row * t.k;
-  conn_out[slot] = conn;
+  with_window(t, Unpruned{}, w, s0, s1, [&](const auto& v) {
+    for (int slot = s0 + threadIdx.x; slot < s1; slot += kTile) {
+      int4 c = candidate(t, v, slot);
+      row_out[slot] = c.x;
+      u_out[slot] = c.y;
+      slot_out[slot] = c.z;
+      conn_out[slot] = c.w;
+    }
+  });
 }
 
 // The end of the live slots of the CTA whose first slot is s0 and which
@@ -818,62 +903,153 @@ struct EdgeTables {
   int n_vertices;
 };
 
-constexpr int kEdgeThreads = 256;
-
-// Port of _edge_extend_kernel (extend.py:658): one thread per candidate
-// slot.  A dead lane (slot past the total) keeps the last parent's row and
-// s, with u = new_eid = -1 and add = 0, as the plain version does.
+// A row's E edge uids from global memory, each index clamped to the eids
+// table, and their endpoints, each uid clamped to the endpoint tables, as
+// the plain version gathers them.
 template <int E>
-__global__ void __launch_bounds__(kEdgeThreads)
+struct EdgeGlobal {
+  const EdgeTables& t;
+
+  __device__ __forceinline__ int eid(int row, int j) const {
+    long long e_rows = (long long)(t.n_parents / (E + 1)) * E;
+    long long e = (long long)row * E + j;
+    return __ldg(t.eids + (e < e_rows - 1 ? e : e_rows - 1));
+  }
+  __device__ __forceinline__ int end(const int* a, int e) const {
+    return __ldg(a + clampi(e, 0, t.n_uedges > 0 ? t.n_uedges - 1 : 0));
+  }
+  __device__ __forceinline__ int src(int row, int j) const {
+    return end(t.usrc, eid(row, j));
+  }
+  __device__ __forceinline__ int dst(int row, int j) const {
+    return end(t.udst, eid(row, j));
+  }
+};
+
+// The same for the rows of a parent window, staged in shared memory: edge
+// j of row r at (r - rf) * E + j.  The window's rows hold at most kWin
+// slot-parents, E + 1 a row, so their edges fit.
+struct EdgeRows {
+  int eid[kWin], src[kWin], dst[kWin];
+};
+
+template <int E>
+struct EdgeSmem {
+  const EdgeRows* r;
+  int rf;
+
+  __device__ __forceinline__ int eid(int row, int j) const {
+    return r->eid[(row - rf) * E + j];
+  }
+  __device__ __forceinline__ int src(int row, int j) const {
+    return r->src[(row - rf) * E + j];
+  }
+  __device__ __forceinline__ int dst(int row, int j) const {
+    return r->dst[(row - rf) * E + j];
+  }
+};
+
+// One slot's outputs of extend_edge.
+struct EdgeOut {
+  int row, s, u, eid, add;
+};
+
+// Port of _edge_extend_kernel (extend.py:658) for one live slot: the
+// slot-parent from view v (the parent window over K5's slot-parents), the
+// row's edges from r.
+template <int E, class V, class R>
+__device__ __forceinline__ EdgeOut edge_slot(const EdgeTables& t,
+                                             const V& v, const R& r,
+                                             int slot) {
+  constexpr int kSlots = E + 1;
+  // stage 1: the slot-parent, from the window's search
+  int p = v.parent(slot);
+  int row = p / kSlots;
+  // stage 2: candidate vertex and new edge uid from the CSR
+  long long ptr = (long long)v.vlo(p) + (slot - v.start(p));
+  ptr = ptr < 0 ? 0 : (ptr > t.m - 1 ? t.m - 1 : ptr);
+  int u = __ldg(t.col + ptr);
+  int new_eid = __ldg(t.edge_uid + ptr);
+  int w = v.emb(p);                           // source vertex
+  // stage 3: canonical-edge test against the row's E edges; a neighbour
+  // is an edge sharing an endpoint with (w, u)
+  bool ok = new_eid > r.eid(row, 0);
+  bool found = false;
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    int eidj = r.eid(row, j);
+    int es = r.src(row, j), ed = r.dst(row, j);
+    bool shares = w == es || w == ed || u == es || u == ed;
+    ok = ok && !(found && new_eid < eidj);
+    found = found || shares;
+    ok = ok && new_eid != eidj;
+  }
+  bool keep = ok && found;
+  // stage 4: the app's per-vertex eager toAdd mask
+  if (keep && t.vmask != nullptr)
+    keep = __ldg(t.vmask + clampi(u, 0, t.n_vertices - 1)) != 0;
+  return EdgeOut{row, p - row * kSlots, u, new_eid, keep};
+}
+
+// K5: a CTA takes kEdgeTiles consecutive 512-slot tiles under one parent
+// window, with_window over the slot-parents as K3's parent tables (E + 1 a
+// row, emb the slot vertices), one slot per thread and tile.  A window
+// staged in shared memory also stages its rows' E edges with their
+// endpoints (EdgeRows), so the canonical-edge test reads shared memory.  A
+// dead lane (slot past the total) keeps the last parent's row and s, with
+// u = new_eid = -1 and add = 0, as the plain version does: constants,
+// which need no search, and which a CTA wholly past the total only stores.
+template <int E>
+__global__ void __launch_bounds__(kTile)
 extend_edge_kernel(EdgeTables t, int cand_cap, int* __restrict__ row_out,
                    int* __restrict__ s_out, int* __restrict__ u_out,
                    int* __restrict__ eid_out, int* __restrict__ add_out) {
   constexpr int kSlots = E + 1;
-  int slot = blockIdx.x * kEdgeThreads + threadIdx.x;
-  if (slot >= cand_cap) return;
-  // stage 1: parent search over the [cap * (E+1)] slot-parent table
-  int p = parent_of(t.offsets, t.n_parents, slot);
-  int row = p / kSlots;
-  int s = p - row * kSlots;
-  int u = -1, new_eid = -1, add = 0;
-  if (slot < __ldg(t.offsets + t.n_parents - 1)) {
-    // stage 2: candidate vertex and new edge uid from the CSR
-    long long ptr = (long long)__ldg(t.vlo + p) + (slot - __ldg(t.starts + p));
-    ptr = ptr < 0 ? 0 : (ptr > t.m - 1 ? t.m - 1 : ptr);
-    u = __ldg(t.col + ptr);
-    new_eid = __ldg(t.edge_uid + ptr);
-    int w = __ldg(t.slots + p);                 // source vertex
-    // stage 3: canonical-edge test against the row's E edges; a
-    // neighbour is an edge sharing an endpoint with (w, u)
-    int e_rows = t.n_parents / kSlots * E;
-    long long base = (long long)row * E;
-    int last_uid = t.n_uedges > 0 ? t.n_uedges - 1 : 0;
-    int eid0 = __ldg(t.eids + (base < e_rows - 1 ? base : e_rows - 1));
-    bool ok = new_eid > eid0;
-    bool found = false;
-#pragma unroll
-    for (int j = 0; j < E; ++j) {
-      long long ej = base + j < e_rows - 1 ? base + j : e_rows - 1;
-      int eidj = __ldg(t.eids + ej);
-      int ec = clampi(eidj, 0, last_uid);
-      int es = __ldg(t.usrc + ec);
-      int ed = __ldg(t.udst + ec);
-      bool shares = w == es || w == ed || u == es || u == ed;
-      ok = ok && !(found && new_eid < eidj);
-      found = found || shares;
-      ok = ok && new_eid != eidj;
-    }
-    bool keep = ok && found;
-    // stage 4: the app's per-vertex eager toAdd mask
-    if (keep && t.vmask != nullptr)
-      keep = __ldg(t.vmask + clampi(u, 0, t.n_vertices - 1)) != 0;
-    add = keep;
+  __shared__ Window<false> w;
+  __shared__ EdgeRows rows;
+  int s0 = blockIdx.x * kEdgeSpan;
+  int s1 = min(cand_cap, s0 + kEdgeSpan);
+  int total = __ldg(t.offsets + t.n_parents - 1);
+  int last = t.n_parents - 1;
+  const EdgeOut dead{last / kSlots, last % kSlots, -1, -1, 0};
+  int live = min(s1, total);
+  if (s0 >= live) {
+    fill(row_out, s0, s1, dead.row);
+    fill(s_out, s0, s1, dead.s);
+    fill(u_out, s0, s1, dead.u);
+    fill(eid_out, s0, s1, dead.eid);
+    fill(add_out, s0, s1, dead.add);
+    return;
   }
-  row_out[slot] = row;
-  s_out[slot] = s;
-  u_out[slot] = u;
-  eid_out[slot] = new_eid;
-  add_out[slot] = add;
+  auto slots = [&](const auto& v, const auto& r) {
+    for (int slot = s0 + threadIdx.x; slot < s1; slot += kTile) {
+      EdgeOut o = slot < live ? edge_slot<E>(t, v, r, slot) : dead;
+      row_out[slot] = o.row;
+      s_out[slot] = o.s;
+      u_out[slot] = o.u;
+      eid_out[slot] = o.eid;
+      add_out[slot] = o.add;
+    }
+  };
+  Tables pt{t.offsets, t.starts, t.slots, t.vlo, t.vlo, t.col, nullptr,
+            t.n_parents, t.m, kSlots, 0};
+  with_window(pt, Unpruned{}, w, s0, live, [&](const auto& v) {
+    using View = std::decay_t<decltype(v)>;
+    if constexpr (std::is_same_v<View, SmemView<false>>) {
+      EdgeGlobal<E> g{t};
+      int n = (w.p_last / kSlots - v.rf + 1) * E;
+      for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        int e = g.eid(v.rf + i / E, i % E);
+        rows.eid[i] = e;
+        rows.src[i] = g.end(t.usrc, e);
+        rows.dst[i] = g.end(t.udst, e);
+      }
+      __syncthreads();
+      slots(v, EdgeSmem<E>{&rows, v.rf});
+    } else {
+      slots(v, EdgeGlobal<E>{t});
+    }
+  });
 }
 
 Tables make_tables(const int* offsets, const int* starts, const int* emb,
@@ -973,8 +1149,8 @@ int extend_candidates(const int* offsets, const int* starts, const int* emb,
                       int* u, int* src_slot, int* conn, void* stream) {
   Tables t = make_tables(offsets, starts, emb, vlo, vhi, col, nullptr,
                          n_parents, m, k);
-  int blocks = (cand_cap + kCandThreads - 1) / kCandThreads;
-  extend_candidates_kernel<<<blocks, kCandThreads, 0,
+  int blocks = (cand_cap + kCandSpan - 1) / kCandSpan;
+  extend_candidates_kernel<<<blocks, kTile, 0,
                              static_cast<cudaStream_t>(stream)>>>(
       t, cand_cap, row, u, src_slot, conn);
   return static_cast<int>(cudaGetLastError());
@@ -1069,12 +1245,12 @@ int extend_edge(const int* offsets, const int* starts, const int* slots,
                 int* u, int* new_eid, int* add, void* stream) {
   EdgeTables t{offsets, starts, slots, vlo, col, edge_uid, eids, usrc, udst,
                vmask, n_parents, m, n_uedges, n_vertices};
-  int blocks = (cand_cap + kEdgeThreads - 1) / kEdgeThreads;
+  int blocks = (cand_cap + kEdgeSpan - 1) / kEdgeSpan;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (n_slots - 1) {
 #define EXTEND_EDGE_CASE(E)                                               \
     case E:                                                               \
-      extend_edge_kernel<E><<<blocks, kEdgeThreads, 0, st>>>(             \
+      extend_edge_kernel<E><<<blocks, kTile, 0, st>>>(                    \
           t, cand_cap, row, s, u, new_eid, add);                          \
       break;
     EXTEND_EDGE_CASE(1)

@@ -443,3 +443,110 @@ def test_instance_of_names_the_launched_instantiation():
     assert smoke.instance_of("extend_count", dict(
         spec=CANONICAL, conn_mode="mixed")) == (
         "extend_count", "canonical", "mixed")
+
+
+K3_REPORT = """\
+ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__fa0614d1_9_extend_cu_6218152324extend_candidates_kernelENS_6TablesEiPiS1_S1_S1_' for 'sm_90a'
+ptxas info    : Function properties for _ZN41_GLOBAL__N__fa0614d1_9_extend_cu_6218152324extend_candidates_kernelENS_6TablesEiPiS1_S1_S1_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 30 registers, used 1 barriers, 20496 bytes smem
+"""
+
+
+def test_build_report_gives_the_enumerators_resources():
+    smoke = _smoke()
+    assert smoke.enumerator_resources(PTXAS_REPORT + K3_REPORT) == {
+        ("extend_edge", 1): dict(registers=26, spill_stores=0,
+                                 spill_loads=0, stack=0, smem=0),
+        ("extend_candidates", None): dict(registers=30, spill_stores=0,
+                                          spill_loads=0, stack=0,
+                                          smem=20496)}
+    assert smoke.enumerator_of("extend_edge", dict(n_slots=3)) == (
+        "extend_edge", 2)
+    assert smoke.enumerator_of("extend_candidates", dict(k=3)) == (
+        "extend_candidates", None)
+
+
+def test_checks_keep_the_largest_candidates_launch(monkeypatch):
+    smoke = _smoke()
+    g, expected = _graph_and_counts(smoke)
+    seen = []
+    fn = ops.extend_candidates
+
+    def record(*a, **kw):
+        seen.append((kw["k"], kw["cand_cap"]))
+        return fn(*a, **kw)
+    monkeypatch.setattr(ops, "extend_candidates", record)
+    checks = smoke.checked_runs(g, APPS, expected, "cpu", keep="tc",
+                                largest="4-cf", chunk=512,
+                                names=("extend_candidates",))
+    _, kw = checks.kept.pop("extend_candidates:4-cf")
+    # TC enumerates level 2 (k = 2), then 4-CF levels 2 and 3, cold only
+    assert [k for k, _ in seen] == [2, 2, 3]
+    assert kw["cand_cap"] == max(cap for _, cap in seen[1:])
+    assert sorted(checks.kept) == ["extend_candidates"]
+    assert checks.kept["extend_candidates"][1]["k"] == 2
+
+
+def test_tail_slots_count_the_constant_tail():
+    """The slots tail_slots counts hold one value in every output of the
+    plain versions, and lie past the total."""
+    from repro_torch.kernels.extend_fused import ref
+    smoke = _smoke()
+    g = rmat(7, 8, seed=0, device="cpu")
+    emb = torch.randint(0, g.n_vertices, (40, 3), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(0))
+    emb[-1] = 0                        # the last parent's row starts at 0
+    embc = emb.reshape(-1).long()
+    vlo, vhi = g.row_ptr[embc], g.row_ptr[embc + 1]
+    deg = (vhi - vlo).to(torch.int32)
+    offsets = torch.cumsum(deg, 0, dtype=torch.int32)
+    a = (g.col_idx, offsets, offsets - deg, emb.reshape(-1), vlo, vhi)
+    total, m = int(offsets[-1]), g.col_idx.shape[0]
+    kw = dict(k=3, cand_cap=total + m + 500, n_steps=8)
+    tail = smoke.tail_slots("extend_candidates", a, kw)
+    assert 500 <= tail < kw["cand_cap"] - total
+    row, u, src_slot, conn = ref.extend_candidates_ref(*a, **kw)
+    for out in (row, u, src_slot, conn):
+        assert bool((out[-tail:] == out[-1]).all())
+    # the slot before the tail still reads col[m - 2]
+    assert int(u[-tail - 1]) == int(g.col_idx[m - 2])
+    assert smoke.tail_slots("extend_candidates", a,
+                            dict(kw, cand_cap=total - 1)) == 0
+    # K5's tail is every slot past the total
+    assert smoke.tail_slots("extend_edge", (None, None, offsets),
+                            dict(cand_cap=total + 77)) == 77
+
+
+def test_k3_shapes_count_each_candidates_call():
+    smoke = _smoke()
+    g, _ = _graph_and_counts(smoke)
+    from repro_torch.core import Miner
+    smoke.K3_SHAPES.clear()
+    seen = []
+    fn = ops.extend_candidates
+    with smoke.counting_k3_shapes():
+        inner = ops.extend_candidates
+        ops.extend_candidates = lambda *a, **kw: (
+            seen.append((kw["k"], kw["cand_cap"])), inner(*a, **kw))[1]
+        try:
+            Miner(g, make_cf_app(4), device="cpu").run()
+        finally:
+            ops.extend_candidates = inner
+    assert ops.extend_candidates is fn                       # restored
+    assert seen and dict(smoke.K3_SHAPES) == {
+        shape: seen.count(shape) for shape in seen}
+    assert {k for k, _ in seen} == {2, 3}
+
+
+def test_e2e_samples_time_fresh_miners_and_hold_the_count():
+    smoke = _smoke()
+    g, expected = _graph_and_counts(smoke)
+    out = smoke.e2e_samples(g, "tc", make_tc_app(), expected["tc"], "cuda",
+                            n=3)
+    for run in ("cold", "warm"):
+        med, lo, hi = out[run]
+        assert 0 < lo <= med <= hi
+    with pytest.raises(AssertionError, match="tc cuda cold"):
+        smoke.e2e_samples(g, "tc", make_tc_app(), expected["tc"] + 1,
+                          "cuda", n=1)

@@ -64,13 +64,16 @@ def _k5_case(E: int, with_vmask: bool, seed: int = 3):
     return args, kw, int(offsets[-1])
 
 
-@pytest.mark.parametrize("cap_case", ["past-total", "below-total"])
+@pytest.mark.parametrize("cap_case", ["past-total", "below-total",
+                                      "far-past-total"])
 @pytest.mark.parametrize("with_vmask", [False, True], ids=["nomask", "vmask"])
 @pytest.mark.parametrize("E", [1, 2, 3])
 def test_extend_edge_plain_matches_jax_on_every_lane(E, with_vmask,
                                                      cap_case):
     args, kw, total = _k5_case(E, with_vmask)
-    cand_cap = total + 37 if cap_case == "past-total" else total * 2 // 3
+    # far past the total, whole 4,096-slot CTAs of the kernel are dead
+    cand_cap = {"past-total": total + 37, "below-total": total * 2 // 3,
+                "far-past-total": total + 9_013}[cap_case]
     jargs = tuple(None if a is None else jnp.asarray(a) for a in args)
     want = fused_extend_edge_ref(*jargs, cand_cap=cand_cap, **kw)
     pallas = fused_extend_edge(*jargs, cand_cap=cand_cap, block_c=128,

@@ -54,9 +54,13 @@ def _case(seed, n, p, n_emb, k):
 
 # -- K3: unpruned enumeration -----------------------------------------------
 
+# extra: cand_cap past the total (None: half the total; "tail": past the
+# total by m + 24,589, so several 8,192-slot CTAs of the kernel lie wholly
+# in its uniform tail, where the last parent's CSR pointer is clamped)
 K3_CASES = {"past-total": (6, 40, 0.25, 50, 3, +17),
             "truncated": (2, 30, 0.4, 20, 2, None),
-            "k4": (4, 36, 0.3, 30, 4, +1)}
+            "k4": (4, 36, 0.3, 30, 4, +1),
+            "uniform-tail": (6, 40, 0.25, 50, 3, "tail")}
 
 
 @pytest.mark.parametrize("case", sorted(K3_CASES))
@@ -64,7 +68,10 @@ def test_extend_candidates_plain_matches_jax(case):
     seed, n, p, n_emb, k, extra = K3_CASES[case]
     g, args, n_steps = _case(seed, n, p, n_emb, k)
     total = int(args[1][-1])
-    cand_cap = total + extra if extra is not None else max(total // 2, 8)
+    if extra == "tail":
+        cand_cap = total + args[0].shape[0] + 24_589
+    else:
+        cand_cap = total + extra if extra is not None else max(total // 2, 8)
     kw = dict(k=k, cand_cap=cand_cap, n_steps=n_steps)
     want = fused_extend_ref(*args, **kw)
     calls = ref.extend_candidates_ref.calls

@@ -484,6 +484,140 @@ def test_parent_window_kernels_match_plain(cuda, case, conn_mode):
             _hold_pruned(args, bits, kw, out_caps)
 
 
+# K3 and K5 take several 512-slot tiles a CTA under one window, and fill a
+# CTA wholly in their constant tail without a search: K3's tail starts
+# where every slot's parent is the last and its CSR pointer is clamped to
+# m - 1, K5's at the total.  The cand_caps below place CTAs on each side of
+# those bounds.
+
+CAND_SPAN = 16 * ref.BLOCK_C     # kCandSpan in csrc/extend.cu
+EDGE_SPAN = 8 * ref.BLOCK_C      # kEdgeSpan
+N_HUB = 10000                    # vertices of the tail tests' graph
+CAP_CASES = ("below", "past", "straddle-total", "straddle-clamp", "tail3")
+
+
+def _hub_graph(device):
+    """An ER graph on N_HUB vertices with a hub (vertex 0) adjacent to all
+    the others, so one parent slot on it has 9,999 candidates."""
+    rng = np.random.default_rng(21)
+    er = rng.integers(0, N_HUB, (30000, 2))
+    hub = np.stack([np.zeros(N_HUB - 1, np.int64), np.arange(1, N_HUB)], 1)
+    return from_edge_list(np.concatenate([er, hub]), n_vertices=N_HUB,
+                          device=device)
+
+
+def _hub_slots(width: int, seed: int) -> np.ndarray:
+    """[1000, width] parent vertices: random, a tenth -1, row 10 led by
+    two hub slots (its candidates fill several CTAs), rows 100 .. 100 +
+    1100 / width all -1 (more than kWin parents without candidates inside
+    one CTA's span), and the last slot on the hub (vlo 0, so the clamp
+    lies far past the total)."""
+    rng = np.random.default_rng(seed)
+    slots = rng.integers(1, N_HUB, (1000, width))
+    slots[rng.random(slots.shape) < 0.1] = -1
+    slots[10, :2] = 0
+    slots[100:100 + 1100 // width + 1] = -1
+    slots[-1, -1] = 0
+    return slots.astype(np.int32)
+
+
+def _cand_cap(case: str, total: int, uniform: int, span: int) -> int:
+    """cand_cap of ``case``: below the total, 300 past it, past the CTA
+    that straddles the total, past the CTA that straddles ``uniform``
+    (where the tail begins), or three whole CTAs into the tail."""
+    up = lambda x: -(-x // span) * span
+    assert total % span and uniform % span
+    return {"below": total * 2 // 3, "past": total + 300,
+            "straddle-total": up(total) + span // 2,
+            "straddle-clamp": up(uniform) + span // 3,
+            "tail3": up(uniform) + 3 * span + 77}[case]
+
+
+def _cta_spans(offsets, width: int, cand_cap: int, span: int) -> np.ndarray:
+    """Per CTA of ``span`` slots below cand_cap, the parent entries its
+    window would cover (the rows of its first and last slot's parents)."""
+    off = offsets.cpu().numpy()
+    s0 = np.arange(0, cand_cap, span)
+    s1 = np.minimum(s0 + span, cand_cap) - 1
+    last = off.shape[0] - 1
+    first = np.minimum(np.searchsorted(off, s0, side="right"), last) // width
+    end = np.minimum(np.searchsorted(off, s1, side="right"), last) // width
+    return (end + 1 - first) * width
+
+
+@pytest.mark.parametrize("case", CAP_CASES)
+@pytest.mark.parametrize("k", [2, 3, 4, 5])
+def test_extend_candidates_window_and_tail_match_plain(cuda, k, case):
+    """K3 against its plain version on every lane, on tables with a hub
+    row, a run of parents without candidates wider than the window, and
+    the clamp far past the total, at cand_caps on each side of the total
+    and of the uniform tail's start."""
+    g = _hub_graph(cuda)
+    emb = torch.from_numpy(_hub_slots(k, seed=k)).to(cuda).reshape(-1)
+    embc = emb.clamp(0, N_HUB - 1).long()
+    vlo, vhi = g.row_ptr[embc], g.row_ptr[embc + 1]
+    deg = torch.where(emb >= 0, vhi - vlo, 0).to(torch.int32)
+    offsets = torch.cumsum(deg, 0, dtype=torch.int32)
+    args = (g.col_idx, offsets, offsets - deg, emb, vlo, vhi)
+    total, m = int(offsets[-1]), g.col_idx.shape[0]
+    uniform = max(total, int(offsets[-1] - deg[-1]) + m - 1 - int(vlo[-1]))
+    assert uniform > total + CAND_SPAN
+    cand_cap = _cand_cap(case, total, uniform, CAND_SPAN)
+    spans = _cta_spans(offsets, k, min(cand_cap, total), CAND_SPAN)
+    assert spans.max() > WINDOW and spans.min() == k   # global path, hub
+    kw = dict(k=k, cand_cap=cand_cap, n_steps=int(np.ceil(np.log2(
+        g.max_degree + 1))))
+    ops.reset_counts()
+    got = ops.extend_candidates(*args, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["extend_candidates"] == 1
+    assert sum(f.calls for f in ops.PLAIN_VERSIONS) == 0
+    for a, b in zip(got, ref.extend_candidates_ref(*args, **kw)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", CAP_CASES)
+@pytest.mark.parametrize("E", [1, 2, 3, 7])
+def test_extend_edge_window_and_tail_match_plain(cuda, E, case):
+    """K5 against its plain version on every lane, on edge tables with a
+    hub slot, a run of slot-parents without candidates wider than the
+    window, and a vertex mask, at cand_caps on each side of the total (the
+    dead tail) and of K3's clamp bound."""
+    g = _hub_graph(cuda)
+    ctx = make_ctx(g, with_edge_uids=True)
+    rng = np.random.default_rng(30 + E)
+    slots = torch.from_numpy(_hub_slots(E + 1, seed=E)).to(cuda).reshape(-1)
+    live = slots >= 0
+    slots = slots.clamp(0, N_HUB - 1)
+    vlo = g.row_ptr[slots.long()]
+    deg = torch.where(live, g.row_ptr[slots.long() + 1] - vlo, 0).to(
+        torch.int32)
+    offsets = torch.cumsum(deg, 0, dtype=torch.int32)
+    eids = torch.from_numpy(rng.integers(-1, ctx.n_uedges, 1000 * E).astype(
+        np.int32)).to(cuda)
+    vmask = torch.from_numpy((rng.random(N_HUB) < 0.6).astype(np.int32)).to(
+        cuda)
+    args = (ctx.col_idx, ctx.edge_uid, offsets, offsets - deg, slots, vlo,
+            eids, ctx.usrc, ctx.udst, vmask)
+    total, m = int(offsets[-1]), g.col_idx.shape[0]
+    clamp = int(offsets[-1] - deg[-1]) + m - 1 - int(vlo[-1])
+    assert clamp > total + EDGE_SPAN
+    cand_cap = _cand_cap(case, total, clamp, EDGE_SPAN)
+    spans = _cta_spans(offsets, E + 1, min(cand_cap, total), EDGE_SPAN)
+    assert spans.max() > WINDOW and spans.min() == E + 1
+    kw = dict(n_slots=E + 1, cand_cap=cand_cap, n_uedges=ctx.n_uedges,
+              n_vertices=N_HUB)
+    ops.reset_counts()
+    got = ops.extend_edge(*args, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["extend_edge"] == 1
+    assert sum(f.calls for f in ops.PLAIN_VERSIONS) == 0
+    want = ref.extend_edge_ref(*args, **kw)
+    assert int(want[4].sum()) > 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 PACKED_MINERS = {
     "partial": dict(pack_partial=True, pack_max_bytes=4096),
     "relabel": dict(relabel=True, pack_max_bytes=4096),
