@@ -51,8 +51,12 @@ Phases (any failure raises, and the script exits non-zero):
 6. tc-fused — the hand-optimised triangle count ``triangle_count_fused(g)``
               on the intersection kernel ``intersect_count``, on RMAT-12 and
               RMAT-16: each launch held against its plain version pair by
-              pair (in pieces), the count against scipy, then the counted
-              cold and warm calls (one launch and no plain call each).
+              pair (in pieces), the count against scipy; the share of
+              RMAT-16's pairs that each of the kernel's paths takes
+              (``[k6]``, from the arguments); the kernel timed on those
+              pairs and on the same pairs shuffled (checked too); then the
+              counted cold and warm calls (one launch and no plain call
+              each).
 7. cuda-1p  — TC and 4-CF cold and warm through ``Miner(...,
               backend="cuda-1p")``, the single-pass pruned extend
               ``extend_pruned_1p``, at the three sizes and modes of phase 3:
@@ -656,6 +660,9 @@ ENUM_SYMBOL = re.compile(
 # (wrapper, E or None) -> build.kernel_resources' entry, filled by the
 # build phase
 ENUM_RESOURCES: dict = {}
+# the intersection kernel's build.kernel_resources entry, filled by the
+# build phase
+K6_RESOURCES: dict = {}
 
 
 def instance_resources(report: str) -> dict:
@@ -723,10 +730,10 @@ ENUM_KERNELS = {"extend_candidates": 1, "extend_edge": 2}
 PLAIN_WHOLE = 1 << 28
 
 
-def time_kernels(kept: dict) -> dict:
+def time_kernels(kept: dict, tag: str = "") -> dict:
     """CUDA-event times of each kernel and its plain version on the
     arguments one main-path launch gave it, the two outputs compared, and
-    the memory bound."""
+    the memory bound; ``tag`` follows the kernel's name in the log."""
     import torch
     from repro_torch.kernels.extend_fused import ref
     from repro_torch.kernels.intersect import ref as intersect_ref
@@ -787,7 +794,12 @@ def time_kernels(kept: dict) -> dict:
             extra = (f", {live} live slots, {tail} uniform-tail slots, "
                      f"{res['registers']} registers, spills "
                      f"{res['spill_stores']} / {res['spill_loads']} B")
-        log(f"[timing] {name} ({int_args(kw)}): {ms:.3f} ms (plain "
+        elif name in INTERSECT_REPLACES:
+            res = K6_RESOURCES or dict.fromkeys(RESOURCE_KEYS)
+            rows[name].update({key: res[key] for key in RESOURCE_KEYS})
+            extra = (f", {res['registers']} registers, spills "
+                     f"{res['spill_stores']} / {res['spill_loads']} B")
+        log(f"[timing] {name}{tag} ({int_args(kw)}): {ms:.3f} ms (plain "
             f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms from {nbytes} B), "
             f"max_abs_err {err}{extra}")
         if err:
@@ -1140,6 +1152,52 @@ def tc_fused_main(graph, want: int) -> int:
         raise AssertionError(f"tc-fused: counts {counts} (scipy {want}), "
                              f"launches {launches}, plain calls {plain}")
     return launches
+
+
+def k6_paths(a, kw, label: str) -> dict:
+    """How many of a launch's pairs take each path of the intersection
+    kernel (``ops.kernel_paths``, from the arguments alone), logged with
+    the share that fails a gate (the search), and the elements of A' and
+    of B over all pairs (B's are the words the kernel streams)."""
+    from repro_torch.kernels.intersect import ops
+    counts = ops.kernel_paths(*a, **kw).long().bincount(
+        minlength=len(ops.PATHS)).tolist()
+    paths = dict(zip(ops.PATHS, counts))
+    lo_a, hi_a, lo_b, hi_b = (t.long() for t in a[1:])
+    sum_a = int((hi_a - lo_a).clamp(0, kw["max_deg"]).sum())
+    sum_b = int((hi_b - lo_b).clamp(min=0).sum())
+    log(f"[k6] {label}: {a[1].shape[0]} pairs, paths {paths}, "
+        f"gate-failing share {paths['search'] / a[1].shape[0]:.6f}, "
+        f"sum |A'| {sum_a}, sum |B| {sum_b}")
+    return paths
+
+
+def shuffled_pairs(a, seed: int = 0) -> tuple:
+    """A launch's arguments with its pairs in a random order (``seed``),
+    col_idx unchanged."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    order = torch.randperm(a[1].shape[0], generator=gen).to(a[1].device)
+    return (a[0], *(t[order].contiguous() for t in a[1:]))
+
+
+def tc_fused_phase(g12, tri12: int, g16, tri16: int) -> tuple:
+    """Phase 6: every ``triangle_count_fused`` launch checked at RMAT-12
+    and RMAT-16, the RMAT-16 launch's paths, the kernel timed on its
+    arguments and on the same pairs shuffled, then the counted cold and
+    warm calls.  Returns (timing row, launches, checks)."""
+    import torch
+    tc_fused_checked(g12, tri12, "rmat12 tc-fused")
+    checks = tc_fused_checked(g16, tri16, "rmat16 tc-fused", keep=True)
+    a, kw = checks.kept.pop("intersect_count")
+    k6_paths(a, kw, "rmat16 tc-fused")
+    shuffled = shuffled_pairs(a)
+    k6_paths(shuffled, kw, "rmat16 tc-fused shuffled")
+    row = time_kernels({"intersect_count": (a, kw)})["intersect_count"]
+    time_kernels({"intersect_count": (shuffled, kw)}, tag=" shuffled")
+    del a, shuffled
+    torch.cuda.empty_cache()
+    return row, tc_fused_main(g16, tri16), checks
 
 
 # ---------------------------------------------------------------------------
@@ -2032,6 +2090,7 @@ def main() -> int:
         from repro_torch.configs.registry import get_arch
         from repro_torch.kernels import build
         from repro_torch.kernels.extend_fused import ops
+        from repro_torch.kernels.intersect import ops as intersect_ops
     except ImportError as exc:
         print(f"chip_smoke: the repro_torch package is not beside this "
               f"script ({exc})", file=sys.stderr)
@@ -2050,7 +2109,14 @@ def main() -> int:
         if src == ops.SOURCE:
             RESOURCES.update(instance_resources(report))
             ENUM_RESOURCES.update(enumerator_resources(report))
+        elif src == intersect_ops.SOURCE:
+            (res,) = build.kernel_resources(report).values()
+            K6_RESOURCES.update(res)
     log(f"[build] {time.perf_counter() - t0:.1f} s")
+    log(f"[build] intersect_count: {K6_RESOURCES['registers']} registers, "
+        f"spills {K6_RESOURCES['spill_stores']} / "
+        f"{K6_RESOURCES['spill_loads']} B, stack {K6_RESOURCES['stack']} B, "
+        f"smem {K6_RESOURCES['smem']} B")
     for (name, pred, mode), res in sorted(RESOURCES.items()):
         log(f"[build] {name} {pred} {mode}: {res['registers']} registers, "
             f"spills {res['spill_stores']} / {res['spill_loads']} B, stack "
@@ -2107,14 +2173,12 @@ def main() -> int:
     profile_warm(g16, make_cf_app(4), "rmat16 4-cf")
 
     # the hand-optimised TC on the intersection kernel: every launch
-    # checked at scale 12 and at the main size, keeping the latter for
-    # timing; then the counted cold and warm calls
+    # checked at scale 12 and at the main size, the latter's paths, its
+    # timing in CSR order and shuffled; then the counted cold and warm
+    # calls
     t_phase = time.perf_counter()
-    tc_fused_checked(g12, expected12["tc"], "rmat12 tc-fused")
-    checks_tc = tc_fused_checked(g16, tri, "rmat16 tc-fused", keep=True)
-    timing.update(time_kernels(checks_tc.kept))
-    checks_tc.kept.clear()
-    launches["intersect_count"] = tc_fused_main(g16, tri)
+    timing["intersect_count"], launches["intersect_count"], checks_tc = \
+        tc_fused_phase(g12, expected12["tc"], g16, tri)
     log(f"[tc-fused] phase {time.perf_counter() - t_phase:.1f} s")
 
     # the single-pass pruned extend: every launch checked at the sizes and

@@ -5,7 +5,8 @@ and dispatches on that device: a CPU tensor runs the plain version in
 ``ref.py``; a CUDA tensor launches the kernel of ``csrc/intersect.cu`` on
 the current stream, or raises.  ``LAUNCHES`` counts its kernel launches and
 nothing else.  The library is built and loaded at the first launch, never
-at import.
+at import.  ``kernel_paths`` says which of the kernel's paths each pair
+takes, from the arguments alone.
 """
 from __future__ import annotations
 
@@ -25,6 +26,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 LAUNCHES = {"intersect_count": 0}
+
+# the kernel's staged forms of segment A (csrc/intersect.cu: kBits, kWords;
+# tests/test_torch_intersect.py holds the two equal)
+BITMAP_BITS = 1 << 16
+LIST_WORDS = 2048
+# the paths of kernel_paths, by their code
+PATHS = ("empty", "bitmap", "list", "search")
 
 
 @functools.lru_cache(maxsize=None)
@@ -61,6 +69,43 @@ def intersect_count(col_idx, lo_a, hi_a, lo_b, hi_b, *, max_deg: int,
            col_idx.shape[0], n, max_deg, n_steps, out.data_ptr())
     LAUNCHES["intersect_count"] += 1
     return out
+
+
+def kernel_paths(col_idx, lo_a, hi_a, lo_b, hi_b, *, max_deg: int,
+                 n_steps: int) -> torch.Tensor:
+    """The path each pair takes in the kernel, int8[n_pairs], a code into
+    ``PATHS``: ``empty`` counts 0 without a search (A' = the first
+    ``max_deg`` elements of A, or B, is empty); ``bitmap`` and ``list``
+    probe B in A' staged as a bitmap over its span or as its sorted list;
+    ``search`` is a pair that fails a gate of those two (A' or B out of
+    strict order or reaching outside ``col_idx``, |B| over 2^n_steps - 1,
+    or A' wider than ``BITMAP_BITS`` ids and longer than ``LIST_WORDS``)
+    and runs the TPU kernel's search."""
+    m = col_idx.shape[0]
+    col = col_idx.long()
+    la, ha, lb, hb = (t.long() for t in (lo_a, hi_a, lo_b, hi_b))
+    # breaks[i]: the positions j in 1..i with col[j] <= col[j - 1]
+    breaks = torch.zeros(m, dtype=torch.long, device=col.device)
+    breaks[1:] = col[1:] <= col[:-1]
+    breaks = breaks.cumsum(0)
+
+    def ascending(lo, hi):          # col[lo:hi) strictly, for lo < hi
+        return (breaks[(hi - 1).clamp(0, m - 1)]
+                == breaks[lo.clamp(0, m - 1)])
+
+    n_a = (ha - la).clamp(0, max_deg)
+    a_ok = (la >= 0) & (la + n_a <= m) & ascending(la, la + n_a)
+    span = (col[(la + n_a - 1).clamp(0, m - 1)] - col[la.clamp(0, m - 1)]
+            + 1)
+    bitmap = a_ok & (span <= BITMAP_BITS)
+    listed = a_ok & ~bitmap & (n_a <= LIST_WORDS)
+    b_ok = ((lb >= 0) & (hb <= m) & (hb - lb < 1 << min(n_steps, 62))
+            & ascending(lb, hb))
+    path = torch.full_like(la, PATHS.index("search"), dtype=torch.int8)
+    path[listed & b_ok] = PATHS.index("list")
+    path[bitmap & b_ok] = PATHS.index("bitmap")
+    path[(n_a == 0) | (lb >= hb)] = PATHS.index("empty")
+    return path
 
 
 def reset_counts() -> None:

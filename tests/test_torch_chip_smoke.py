@@ -211,6 +211,26 @@ def test_intersect_checks_stop_at_a_wrong_kernel(monkeypatch):
         smoke.tc_fused_checked(g, expected["tc"], "cpu", chunk=512)
 
 
+def test_k6_paths_and_shuffled_pairs_keep_every_pair():
+    """The ``[k6]`` line's counts cover every pair of the fused TC's
+    launch, all of them past the gates on a DAG; the shuffled launch holds
+    the same pairs in another order and counts the same triangles."""
+    smoke = _smoke()
+    g, expected = _graph_and_counts(smoke)
+    checks = smoke.tc_fused_checked(g, expected["tc"], "cpu", keep=True)
+    a, kw = checks.kept["intersect_count"]
+    paths = smoke.k6_paths(a, kw, "cpu")
+    assert sum(paths.values()) == a[1].shape[0] and paths["search"] == 0
+    shuffled = smoke.shuffled_pairs(a)
+    assert shuffled[0] is a[0]
+    assert not torch.equal(shuffled[1], a[1])
+    key = [sorted(zip(*(t.tolist() for t in x[1:]))) for x in (a, shuffled)]
+    assert key[0] == key[1]
+    assert smoke.k6_paths(shuffled, kw, "cpu") == paths
+    assert (int(intersect_ops.intersect_count(*shuffled, **kw).sum())
+            == expected["tc"])
+
+
 def test_flash_checks_hold_every_serving_launch():
     """Every flash-attention launch of serve_lm, in pieces of query rows."""
     from repro_torch.configs.registry import get_arch

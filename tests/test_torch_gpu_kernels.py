@@ -24,6 +24,7 @@ from repro_torch.core.apps.psm import make_set_branch_spec
 from repro_torch.core.patterns import compile_pattern_set, motif_patterns
 from repro_torch.graph import generators as TG
 from repro_torch.graph.csr import from_edge_list, pack_adjacency
+from repro_torch.graph.dag import orient_dag
 from repro_torch.kernels.extend_fused import ops, ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
@@ -166,17 +167,60 @@ def test_cuda_miner_matches_plain_backend(cuda, make_app, backend):
     assert sum(f.calls for f in ops.PLAIN_VERSIONS) == 0
 
 
-def _intersect_inputs(device, seed=4, n=60, n_pairs=1000):
-    """Random vertex pairs of an ER graph, some with an empty segment."""
-    g = TG.erdos_renyi(n, 0.25, seed=seed, device=device)
-    rp = g.row_ptr.cpu().numpy()
+def _intersect_inputs(device, variant="plain", seed=4, n=60, n_pairs=1000):
+    """Random vertex pairs of an ER graph, some with an empty segment, in
+    one of the input classes that the kernel's gates split
+    (``ops.kernel_paths``): pairs grouped by source (``grouped``), a run of
+    one source longer than a CTA's tile (``straddle``), reversed rows
+    (``unsorted-b``), repeated neighbours (``dup-a``), ids too wide for the
+    bitmap (``wide-ids``), malformed and out-of-range bounds
+    (``malformed``), pairs grouped by source whose rows alternate
+    between narrow and too wide for the bitmap, so that one warp's runs go
+    bitmap, list, bitmap (``mixed-ids``), and two hub rows of 3,000 ids,
+    one inside the bitmap's span and one too wide for the bitmap and too
+    long for the list (``hub``).  Returns (col_idx, the four bounds) on
+    ``device`` and the longest row."""
+    g = TG.erdos_renyi(n, 0.25, seed=seed, device="cpu")
+    rp = g.row_ptr.numpy().astype(np.int64)
+    col = g.col_idx.numpy().astype(np.int64)
     rng = np.random.default_rng(seed)
     a, b = rng.integers(0, n, n_pairs), rng.integers(0, n, n_pairs)
-    lo_a, hi_a, lo_b, hi_b = (torch.from_numpy(x.astype(np.int32)).to(device)
-                              for x in (rp[a], rp[a + 1], rp[b], rp[b + 1]))
-    hi_b[::7] = lo_b[::7]                             # empty B
-    hi_a[3::11] = lo_a[3::11]                         # empty A
-    return g, (g.col_idx, lo_a, hi_a, lo_b, hi_b)
+    if variant in ("grouped", "mixed-ids"):
+        a = np.sort(a)
+    elif variant == "straddle":                       # 2,500 pairs of A = 7
+        a[100:2600] = 7
+    elif variant == "hub":
+        hubs = [np.sort(rng.choice(60_000, 3000, replace=False)),
+                np.sort(rng.choice(1 << 24, 3000, replace=False))]
+        col = np.concatenate([col, *hubs])
+        rp = np.concatenate([rp, rp[-1] + np.array([3000, 6000])])
+        a[::3] = n + a[::3] % 2                       # A: a hub row
+        b[1::3] = n + b[1::3] % 2                     # B: a hub row
+    bounds = [rp[a].copy(), rp[a + 1].copy(), rp[b].copy(), rp[b + 1].copy()]
+    if variant == "unsorted-b":
+        for v in range(0, n, 3):
+            col[rp[v]:rp[v + 1]] = col[rp[v]:rp[v + 1]][::-1].copy()
+    elif variant == "dup-a":
+        for v in range(0, n, 4):
+            if rp[v + 1] - rp[v] > 2:
+                col[rp[v] + 1] = col[rp[v]]
+    elif variant == "wide-ids":
+        col = (1 << 20) + col * 4099
+    elif variant == "mixed-ids":                      # odd rows widened
+        for v in range(1, n, 2):
+            col[rp[v]:rp[v + 1]] = (1 << 20) + col[rp[v]:rp[v + 1]] * 4099
+    elif variant == "malformed":
+        for lo, hi, at in ((0, 1, slice(0, None, 6)),
+                           (2, 3, slice(3, None, 6))):
+            bounds[lo][at], bounds[hi][at] = (bounds[hi][at] + 1,
+                                              bounds[lo][at])
+        bounds[2][1::10] -= 3
+        bounds[1][5::10] = col.shape[0] + 2
+    bounds[3][::7] = bounds[2][::7]                   # empty B
+    if variant == "plain":
+        bounds[1][3::11] = bounds[0][3::11]           # empty A
+    return tuple(torch.from_numpy(x.astype(np.int32)).to(device)
+                 for x in (col, *bounds)), int(np.diff(rp).max())
 
 
 def _variant_spec(name: str, device):
@@ -711,13 +755,46 @@ def test_cuda_motifs_match_plain_backend(cuda, app_name, backend):
         "conjunction", "canonical", "branches")) >= 2
 
 
-@pytest.mark.parametrize("case", ["full", "truncated", "one-step"])
+# each case's input class and the kernel paths (ops.PATHS) it must reach
+INTERSECT_CASES = {"full": ("plain", {"bitmap"}),
+                   "truncated": ("plain", {"bitmap"}),
+                   "one-step": ("plain", {"search"}),
+                   "grouped": ("grouped", {"bitmap"}),
+                   "straddle": ("straddle", {"bitmap"}),
+                   "unsorted-b": ("unsorted-b", {"bitmap", "search"}),
+                   "dup-a": ("dup-a", {"bitmap", "search"}),
+                   "wide-ids": ("wide-ids", {"list"}),
+                   "mixed-ids": ("mixed-ids", {"bitmap", "list"}),
+                   "malformed": ("malformed", {"empty", "search"}),
+                   "hub": ("hub", {"bitmap", "search"}),
+                   "rmat10-dag": (None, {"bitmap"})}
+
+
+@pytest.mark.parametrize("case", sorted(INTERSECT_CASES))
 def test_intersect_count_matches_plain(cuda, case):
-    g, args = _intersect_inputs(cuda)
-    n_steps = int(np.ceil(np.log2(g.max_degree + 1)))
-    kw = {"full": dict(max_deg=g.max_degree, n_steps=n_steps),
-          "truncated": dict(max_deg=5, n_steps=n_steps),
-          "one-step": dict(max_deg=g.max_degree, n_steps=1)}[case]
+    """Every pair of each input class equal to the plain version, in one
+    launch: the classes that pass the kernel's gates (A' staged as a bitmap
+    or a list) and those that fail one (the search), as ``kernel_paths``
+    names them; ``rmat10-dag`` is ``triangle_count_fused``'s launch on
+    RMAT-10."""
+    variant, want_paths = INTERSECT_CASES[case]
+    if variant is None:
+        dag = orient_dag(TG.rmat(10, 16, seed=0, device=cuda))
+        src, dst = (t.long() for t in dag.edge_list())
+        rp = dag.row_ptr
+        args = (dag.col_idx, rp[src], rp[src + 1], rp[dst], rp[dst + 1])
+        max_deg = dag.max_degree
+    else:
+        args, max_deg = _intersect_inputs(
+            cuda, variant, n_pairs=3000 if case == "straddle" else 1000)
+    kw = dict(max_deg=max_deg, n_steps=int(np.ceil(np.log2(max_deg + 1))))
+    if case == "truncated":
+        kw["max_deg"] = 5
+    elif case == "one-step":
+        kw["n_steps"] = 1
+    paths = {intersect_ops.PATHS[i] for i in
+             intersect_ops.kernel_paths(*args, **kw).tolist()}
+    assert want_paths <= paths, paths
     intersect_ops.reset_counts()
     got = intersect_ops.intersect_count(*args, **kw)
     torch.cuda.synchronize()
