@@ -110,7 +110,38 @@ Phases (any failure raises, and the script exits non-zero):
               diamond on RMAT-10, the labeled chain on RMAT-12, 3-MC
               ``memo`` on RMAT-8; and one ``search="linear"`` Miner on
               ``torch-ref``.
-10. lm      — Qwen3-0.6B at full width in bf16 (random weights from seed 0)
+10. plan    — the sampled estimator and plan transfer
+              (``plan_source="estimate"`` and ``"cache"``).  Checked small:
+              TC, 4-CF and 3-MC on RMAT-12 and 3-FSM on ``rmat(12, 8,
+              seed=0, labels=4)``, estimated, cold and warm on ``cuda`` and
+              ``cuda-1p``, every launch (the estimator's probe at 2^15
+              slots included) held against its plain version and the
+              estimated caps printed beside the inspection's.  Then the
+              counted main paths, estimated: RMAT-16 TC and 4-CF and 3-FSM
+              on ``rmat(15, 8, seed=0, labels=4)`` at 2500 on both
+              backends, counts and supports against scipy, the plans'
+              source, replans and caps (clipped to 2^30 slots), no plain
+              call and no K3 launch, each with its ``[e2e]`` line.  Then
+              RMAT-15 4-CF's inspected plan recorded in a plan cache under
+              the ignored ``build/plan_cache/`` and RMAT-16 4-CF mined from
+              it with ``plan_source="cache"`` (source ``transfer``).
+11. blocks  — edge blocks (``block_size``, ``block_bytes``,
+              ``checkpoint_cb``, ``resume_from``).  Checked small: TC, 4-CF
+              and 3-MC on RMAT-12 in six blocks on both backends, and a
+              3-MC run killed after block 1 and resumed.  The out-of-core
+              row (the JAX package's tc-oocore): RMAT-16 TC and 4-CF
+              relabeled under a 134,217,728 B core pack, estimated
+              unblocked, then blocked at a quarter of its
+              ``peak_live_bytes`` (cold, estimated) and re-streamed warm,
+              with both runs' ``max_memory_allocated``, the queue's
+              ``stage_s`` / ``mine_s`` and the block count.  Then 3-MC on
+              ``rmat(16, 16, seed=0)``, whose 2.48 G level-2 candidates
+              pass the 2^30 slots of one level, at a 16 GiB budget on both
+              backends: the block size, each block's candidates counted on
+              the host, the final plan and its replans, the count and p_map
+              against the census (wedges from the degrees, triangles from
+              scipy), no plain call.
+12. lm      — Qwen3-0.6B at full width in bf16 (random weights from seed 0)
               served through ``serve_lm``: request set A (batch 4, prompt
               4,096 tokens, 32 new) and set B (batch 1, prompt 32,768, 8
               new), every ``flash_attention`` launch of both held against
@@ -126,7 +157,7 @@ Phases (any failure raises, and the script exits non-zero):
               prompt 512, TF32 off, the FMA variant): prefill on the
               kernel against prefill on the plain attention (last-token
               logits within 1e-3) and the same 8 greedy tokens.
-11. segsum  — the segment sum ``sorted_segment_sum`` at ogb_products'
+13. segsum  — the segment sum ``sorted_segment_sum`` at ogb_products'
               scale (``configs/shapes.py``: 61,859,140 rows of 100 f32
               values into 2,449,029 sorted segments, 24.7 GB): sorted,
               unsorted and bf16 launches held against the plain version,
@@ -264,11 +295,13 @@ E2E_SAMPLES = 5
 
 
 def e2e_samples(graph, name: str, app, want: int, backend: str,
-                n: int = E2E_SAMPLES, **miner_kw) -> dict:
-    """Cold then warm ``Miner.run`` wall times of ``n`` fresh Miners of
-    ``app`` on ``backend``, each made after emptying the allocator's cache
-    as the counted main paths do; every count must be ``want``.  Logs and
-    returns each run's median, least and largest time."""
+                n: int = E2E_SAMPLES, run_kw: dict | None = None,
+                **miner_kw) -> dict:
+    """Cold then warm ``Miner.run(**run_kw)`` wall times of ``n`` fresh
+    Miners of ``app`` on ``backend``, each made after emptying the
+    allocator's cache as the counted main paths do; every count must be
+    ``want``.  Logs and returns each run's median, least and largest
+    time."""
     import statistics
 
     import torch
@@ -285,7 +318,7 @@ def e2e_samples(graph, name: str, app, want: int, backend: str,
         for run in ("cold", "warm"):
             sync()
             t0 = time.perf_counter()
-            count = miner.run().count
+            count = miner.run(**(run_kw or {})).count
             sync()
             times[run].append(time.perf_counter() - t0)
             if count != want:
@@ -358,6 +391,10 @@ class KernelChecks:
         self.keep = False
         self.largest: str | None = None
         self.plain_ms = 0.0
+        # per checked run: its executors' plans (plans_of)
+        self.plans: dict = {}
+        # checked launches by cand_cap
+        self.cand_caps: collections.Counter = collections.Counter()
 
     def _plain(self, a, fn):
         """``fn()``, a plain version's call on inputs ``a``, its time added
@@ -393,6 +430,7 @@ class KernelChecks:
             err = check(a, kw, got)
             self.err[name] = max(self.err[name], err)
             self.launches[name] += 1
+            self.cand_caps[kw.get("cand_cap")] += 1
             self.modes.add(kw.get("conn_mode", "-"))
             if self.keep and name not in self.kept:
                 self.kept[name] = (a, kw)
@@ -976,11 +1014,13 @@ def frequent_supports(result, min_support: int) -> list[int]:
 
 
 def fsm_checked(graph, min_support: int, label: str, keep: bool = False,
-                chunk: int = 1 << 25):
-    """Cold then warm 3-FSM on the cuda backend with every edge-kernel
-    launch held against its plain version, and the frequent supports
-    against the scipy count.  Returns the checks and the labels the app's
-    vertex mask dropped."""
+                chunk: int = 1 << 25, backend: str = "cuda",
+                run_kw: dict | None = None, n_launches: int | None = 3):
+    """Cold then warm 3-FSM (``Miner.run(**run_kw)``) on ``backend`` with
+    every edge-kernel launch held against its plain version, and the
+    frequent supports against the scipy count; ``n_launches`` (unless
+    None) is the edge kernel's launches the two runs make.  Returns the
+    checks and the labels the app's vertex mask dropped."""
     import torch
     from repro_torch.core import Miner, make_fsm_app
 
@@ -989,30 +1029,38 @@ def fsm_checked(graph, min_support: int, label: str, keep: bool = False,
     checks.keep = keep
     with checks:
         miner = Miner(graph, make_fsm_app(3, min_support, max_patterns=64),
-                      backend="cuda", device=graph.device)
+                      backend=backend, device=graph.device)
         for run in ("cold", "warm"):
-            got = frequent_supports(miner.run(), min_support)
+            got = frequent_supports(miner.run(**(run_kw or {})),
+                                    min_support)
             if got != want:
                 raise AssertionError(f"{label} {run}: supports {got} != "
                                      f"scipy {want}")
+    checks.plans[label] = plans_of(miner)
     mask = miner.ops.app.to_add_vertex_mask(miner.ctx)
     dropped = sorted(set(graph.labels[~mask].tolist()))
     checks.report(label)
     log(f"[check] {label}: {len(want)} frequent patterns, labels dropped by "
         f"the mask {dropped}, level-2 launches (cand_cap, candidates, "
         f"survivors, masked) {checks.edge_levels}")
-    if checks.launches["extend_edge"] != 3:
-        raise AssertionError(f"{label}: {checks.launches} launches, not 3")
+    if n_launches is not None and \
+            checks.launches["extend_edge"] != n_launches:
+        raise AssertionError(f"{label}: {checks.launches} launches, not "
+                             f"{n_launches}")
     del miner
     if graph.device.type == "cuda":
         torch.cuda.empty_cache()
     return checks, dropped
 
 
-def fsm_main_path(graph, min_support: int, want: list[int]) -> int:
-    """Cold then warm 3-FSM through ``Miner.run`` on the cuda backend, the
-    launches counted; then the warm replay re-run up to its final read with
-    device syncs made errors.  Returns the run's ``extend_edge`` launches."""
+def fsm_main_path(graph, min_support: int, want: list[int],
+                  backend: str = "cuda", run_kw: dict | None = None,
+                  label: str = "3-fsm") -> int:
+    """Cold then warm 3-FSM through ``Miner.run(**run_kw)`` on ``backend``,
+    the launches counted (2 cold: the inspection's or the estimator's probe
+    and the extension; 1 warm); then the warm replay re-run up to its final
+    read with device syncs made errors.  Returns the run's ``extend_edge``
+    launches."""
     import numpy as np
     import torch
     from repro_torch.core import Miner, make_fsm_app
@@ -1022,48 +1070,51 @@ def fsm_main_path(graph, min_support: int, want: list[int]) -> int:
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
     miner = Miner(graph, make_fsm_app(3, min_support, max_patterns=64),
-                  backend="cuda")
+                  backend=backend)
     times, results, launches = {}, {}, {}
+    level1 = None
     for run in ("cold", "warm"):
         before = ops.LAUNCHES["extend_edge"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        results[run] = miner.run()
+        results[run] = miner.run(**(run_kw or {}))
         torch.cuda.synchronize()
         times[run] = time.perf_counter() - t0
         launches[run] = ops.LAUNCHES["extend_edge"] - before
-        if run == "cold":          # the cold run returns its levels
+        if results[run].levels is not None:   # an inspection's levels
             level1 = int(results[run].levels[0].n)
             results[run].levels = None
     plain = sum(fn.calls for fn in ops.PLAIN_VERSIONS)
     peak = torch.cuda.max_memory_allocated()
     (ex,) = miner._executors.values()
-    log(f"[main] 3-fsm: cold {results['cold'].count} patterns in "
+    log(f"[main] {label}: cold {results['cold'].count} patterns in "
         f"{times['cold']:.3f} s, warm {results['warm'].count} in "
         f"{times['warm']:.3f} s, plan caps {list(ex.plan.caps)} filter caps "
-        f"{list(ex.plan.filter_caps)}, replans {ex.n_replans}, peak {peak} B, "
-        f"launches {launches}, plain calls {plain}, level 1 {level1} edges")
+        f"{list(ex.plan.filter_caps)} ({ex.plan.source}), replans "
+        f"{ex.n_replans}, peak {peak} B, launches {launches}, plain calls "
+        f"{plain}" + ("" if level1 is None else f", level 1 {level1} edges"))
     for run, r in results.items():
         got = frequent_supports(r, min_support)
         if got != want or r.count != FSM_FREQUENT:
-            raise AssertionError(f"3-fsm {run}: {r.count} patterns, supports "
-                                 f"{got} != scipy {want}")
-    if level1 != miner.ctx.n_uedges:
+            raise AssertionError(f"{label} {run}: {r.count} patterns, "
+                                 f"supports {got} != scipy {want}")
+    if level1 is not None and level1 != miner.ctx.n_uedges:
         raise AssertionError(f"level 1 kept {level1} of "
                              f"{miner.ctx.n_uedges} edges")
     if launches != {"cold": 2, "warm": 1} or plain:
-        raise AssertionError(f"3-fsm: launches {launches}, plain {plain}")
+        raise AssertionError(f"{label}: launches {launches}, plain {plain}")
     count = sum(launches.values())
     # the warm replay up to its final read, with every device sync an error
     n = torch.tensor(miner.ctx.n_uedges, dtype=torch.int32, device="cuda")
     args = miner.edge_worklist()
     _, supports, _ = sync_free(lambda: ex._run_once(*args, n))
     if not np.array_equal(supports.cpu().numpy(), results["warm"].supports):
-        raise AssertionError("3-fsm: the sync-checked replay differs")
-    log("[main] 3-fsm: the warm replay made no device sync before its "
+        raise AssertionError(f"{label}: the sync-checked replay differs")
+    log(f"[main] {label}: the warm replay made no device sync before its "
         "final read")
+    plans = plans_of(miner)
     del miner
-    return count
+    return count, plans
 
 
 def profile_call(fn, label: str) -> None:
@@ -1313,16 +1364,18 @@ MC_PATH_KERNELS = {"cuda": ("extend_candidates", "extend_count",
 
 def mc_checked(graph, runs, label: str, pack_max_bytes: int = 4 << 20,
                backend: str = "cuda", chunk: int = 1 << 25,
-               keep: str | None = None, **miner_kw) -> KernelChecks:
-    """Cold then warm ``Miner.run`` of each ``(name, app, count, p_map)``
-    of ``runs`` on ``backend``, every launch of the backend's kernels held
-    against its plain version (state buffers included), and each count and
-    p_map against the expected ones; ``miner_kw`` are further ``Miner``
-    options."""
+               keep: str | None = None, run_kw: dict | None = None,
+               names=None, **miner_kw) -> KernelChecks:
+    """Cold then warm ``Miner.run(**run_kw)`` of each ``(name, app, count,
+    p_map)`` of ``runs`` on ``backend``, every launch of the kernels
+    ``names`` (by default the backend's) held against its plain version
+    (state buffers included), and each count and p_map against the
+    expected ones; ``miner_kw`` are further ``Miner`` options.  Each run's
+    plans are kept in ``checks.plans[name]``."""
     import torch
     from repro_torch.core import Miner
 
-    checks = KernelChecks(chunk, MC_PATH_KERNELS[backend])
+    checks = KernelChecks(chunk, names or MC_PATH_KERNELS[backend])
     with checks:
         for name, app, count, p_map in runs:
             checks.keep = name == keep
@@ -1330,11 +1383,12 @@ def mc_checked(graph, runs, label: str, pack_max_bytes: int = 4 << 20,
                           pack_max_bytes=pack_max_bytes, device=graph.device,
                           **miner_kw)
             for run in ("cold", "warm"):
-                r = miner.run()
+                r = miner.run(**(run_kw or {}))
                 got = None if r.p_map is None else [int(x) for x in r.p_map]
                 if r.count != count or got != p_map:
                     raise AssertionError(f"{label} {name} {run}: {r.count} "
                                          f"{got} != {count} {p_map}")
+            checks.plans[name] = plans_of(miner)
             del miner
             torch.cuda.empty_cache()
     checks.report(label)
@@ -1344,13 +1398,15 @@ def mc_checked(graph, runs, label: str, pack_max_bytes: int = 4 << 20,
 
 
 def mc_main(graph, name: str, app, count: int, p_map, backend: str,
-            keep_levels: bool = False, mode: str | None = None, **miner_kw):
-    """Cold then warm ``Miner.run`` of ``app`` on ``backend`` (with Miner
-    options ``miner_kw``), the launches counted: every kernel of the
-    backend's path launches, no other kernel and no plain version runs,
-    and with ``mode`` every pruned launch probes in that mode.  Returns the
-    launches per kernel, per template instantiation (``ops.
-    INSTANCE_LAUNCHES``), and the cold run's levels when ``keep_levels``."""
+            keep_levels: bool = False, mode: str | None = None,
+            run_kw: dict | None = None, path=None, **miner_kw):
+    """Cold then warm ``Miner.run(**run_kw)`` of ``app`` on ``backend``
+    (with Miner options ``miner_kw``), the launches counted: every kernel
+    of the path (by default the backend's) launches, no other kernel and
+    no plain version runs, and with ``mode`` every pruned launch probes in
+    that mode.  Returns the launches per kernel, per template
+    instantiation (``ops.INSTANCE_LAUNCHES``), and the cold run's levels
+    when ``keep_levels`` (else the Miner's plans, ``plans_of``)."""
     import torch
     from repro_torch.core import Miner
     from repro_torch.kernels.extend_fused import ops
@@ -1363,7 +1419,7 @@ def mc_main(graph, name: str, app, count: int, p_map, backend: str,
     for run in ("cold", "warm"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        results[run] = miner.run()
+        results[run] = miner.run(**(run_kw or {}))
         torch.cuda.synchronize()
         times[run] = time.perf_counter() - t0
     launches, variants = dict(ops.LAUNCHES), dict(ops.VARIANT_LAUNCHES)
@@ -1376,9 +1432,9 @@ def mc_main(graph, name: str, app, count: int, p_map, backend: str,
            for run, r in results.items()}
     log(f"[main] {name} {backend}: cold {got['cold']} in {times['cold']:.3f} "
         f"s, warm {got['warm']} in {times['warm']:.3f} s, plan "
-        f"{list(ex.plan.caps)}, replans {ex.n_replans}, peak {peak} B, "
-        f"launches {launches}, variants {variants}, modes {modes}, plain "
-        f"calls {plain}")
+        f"{list(ex.plan.caps)} ({ex.plan.source}), replans {ex.n_replans}, "
+        f"peak {peak} B, launches {launches}, variants {variants}, modes "
+        f"{modes}, plain calls {plain}")
     if mode is not None and modes[mode] != sum(modes.values()):
         raise AssertionError(f"{name} {backend}: modes {modes}, not all "
                              f"{mode}")
@@ -1386,12 +1442,12 @@ def mc_main(graph, name: str, app, count: int, p_map, backend: str,
         if got[run] != (count, p_map):
             raise AssertionError(f"{name} {backend} {run}: {got[run]} != "
                                  f"census {(count, p_map)}")
-    path = MC_PATH_KERNELS[backend]
+    path = path or MC_PATH_KERNELS[backend]
     if plain or min(launches[k] for k in path) < 1 or any(
             n for k, n in launches.items() if k not in path):
         raise AssertionError(f"{name} {backend}: launches {launches}, plain "
                              f"calls {plain}")
-    levels = results["cold"].levels if keep_levels else None
+    levels = results["cold"].levels if keep_levels else plans_of(miner)
     del miner, results
     return launches, instances, levels
 
@@ -1787,6 +1843,384 @@ def mixed_phase(expected: dict, census: dict, timing: dict,
         if row_launches[name] < 1:
             raise AssertionError(f"{name}: no launch on the main path")
     launches.update(row_launches)
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# The sampled planner, plan transfer and edge blocks
+
+
+# The pruned kernels each vertex backend's estimated (and seeded blocked)
+# runs launch: no inspection, so no K3
+PRUNED_PATH = {"cuda": ("extend_count", "extend_scatter"),
+               "cuda-1p": ("extend_pruned_1p",)}
+MAX_SLOTS = 1 << 30             # candidate slots a plan may hold
+# the plan caches the [plan] phase's transfer writes, one a backend
+PLAN_CACHE = ROOT / "build" / "plan_cache"
+# 3-MC on RMAT-16's device-byte budget, 16 GiB
+MC16_BLOCK_BYTES = 17_179_869_184
+
+
+def plans_of(miner) -> list:
+    """The Miner's executors' plans: ``(cap0, caps, filter_caps, source,
+    replans)`` each."""
+    return [(cap0, list(ex.plan.caps), list(ex.plan.filter_caps),
+             ex.plan.source, ex.n_replans)
+            for cap0, ex in sorted(miner._executors.items())
+            if ex.plan is not None]
+
+
+def check_plans(label: str, plans, sources) -> None:
+    """Each plan clipped (every cand_cap and filter cap at most 2^30 slots,
+    each out_cap at most its cand_cap), its source one of ``sources``, and
+    ``grown`` exactly when it replanned."""
+    if not plans:
+        raise AssertionError(f"{label}: no plan")
+    for _, caps, fcaps, source, replans in plans:
+        if any(c > MAX_SLOTS or o > c for c, o in caps) or any(
+                f > MAX_SLOTS for f in fcaps):
+            raise AssertionError(f"{label}: caps {caps} {fcaps} not clipped")
+        if source not in sources or (source == "grown") != (replans > 0):
+            raise AssertionError(f"{label}: source {source}, replans "
+                                 f"{replans}, not one of {sources}")
+
+
+def note_launches(launches: dict, got: dict, instances: dict,
+                  pack: str | None = None) -> None:
+    """Adds a counted run's launches to the kernels' JSON rows: each
+    wrapper's to its row, each instantiation's to its spec kind's row
+    (``extend_count:branches``), mixed-mode ones under pack ``pack`` to
+    the mixed rows (``extend_count:clique-mixed-core``)."""
+    for k, n in got.items():
+        launches[k] = launches.get(k, 0) + n
+    for (wrapper, kind, mode), n in instances.items():
+        key = (f"{wrapper}:{kind}-mixed-{pack}" if mode == "mixed" and pack
+               else f"{wrapper}:{kind}")
+        if key in launches:
+            launches[key] += n
+
+
+def wedge_census(graph, triangles: int) -> list[int]:
+    """3-MC's census [open wedges, triangles] from the degrees and a
+    triangle count: wedges = sum C(d, 2) - 3T."""
+    import numpy as np
+    deg = graph.degrees().cpu().numpy().astype(np.int64)
+    return [int((deg * (deg - 1) // 2).sum()) - 3 * triangles, triangles]
+
+
+def block_candidates(miner, block_size: int) -> list[int]:
+    """Each block's level-2 candidates, counted on the host: sum deg(u) +
+    deg(v) over its worklist entries (u, v)."""
+    import numpy as np
+    deg = miner.graph.degrees().cpu().numpy().astype(np.int64)
+    src, dst = miner.worklist_host()
+    per = deg[src] + deg[dst]
+    return [int(per[lo:lo + block_size].sum())
+            for lo in range(0, per.shape[0], block_size)]
+
+
+def plan_phase(g12, expected12: dict, expected: dict, want15: list,
+               launches: dict) -> dict:
+    """The [plan] phase: the sampled estimator and plan transfer.  TC, 4-CF
+    and 3-MC on RMAT-12 and 3-FSM on ``rmat(12, 8, seed=0, labels=4)`` with
+    ``plan_source="estimate"`` on both backends, every launch (the probe's
+    at 2^15 slots included) held against its plain version, the estimated
+    caps printed beside the inspection's; then the counted main paths,
+    RMAT-16 TC and 4-CF and 3-FSM on ``rmat(15, 8, seed=0, labels=4)``
+    estimated, each with its five-Miner ``[e2e]`` line; then RMAT-15
+    4-CF's plan recorded in a plan cache and RMAT-16 4-CF mined from it
+    (``plan_source="cache"``, a transfer).  Returns the checks' largest
+    errors by kernel."""
+    import shutil
+
+    import torch
+    from repro_torch.core import (PlanCache, Miner, make_cf_app,
+                                  make_fsm_app, make_mc_app, make_tc_app)
+    from repro_torch.core.plan import SAMPLE_CAND_CAP
+    from repro_torch.graph.generators import rmat
+
+    errs: dict = {}
+    est = {"plan_source": "estimate"}
+
+    def note(checks):
+        for k, v in checks.err.items():
+            errs[k] = max(errs.get(k, 0), v)
+
+    c3 = motif_census(g12, 3)
+    small = [("tc", make_tc_app(), expected12["tc"], None),
+             ("4-cf", make_cf_app(4), expected12["4-cf"], None),
+             ("3-mc", make_mc_app(3), sum(c3), c3)]
+    for backend in ("cuda", "cuda-1p"):
+        checks = mc_checked(g12, small, f"plan rmat12 estimate {backend}",
+                            pack_max_bytes=0, backend=backend, run_kw=est,
+                            names=PRUNED_PATH[backend])
+        probes = checks.cand_caps[SAMPLE_CAND_CAP]
+        inspected = mc_checked(g12, small, f"plan rmat12 inspect {backend}",
+                               pack_max_bytes=0, backend=backend)
+        for name, *_ in small:
+            log(f"[plan] rmat12 {name} {backend}: estimated "
+                f"{checks.plans[name]}, inspection {inspected.plans[name]}")
+            check_plans(f"rmat12 {name}", checks.plans[name],
+                        ("estimated", "grown"))
+        if probes < len(small):
+            raise AssertionError(f"rmat12 {backend}: {probes} launches at "
+                                 "the probe's 2^15 slots checked")
+        note(checks)
+        note(inspected)
+    g12l = rmat(12, 8, seed=0, labels=4)
+    ms12 = min(scipy_fsm(g12l, 0)[2]) + 1
+    for backend in ("cuda", "cuda-1p"):
+        label = f"plan rmat12 3-fsm ms={ms12} {backend}"
+        checks, _ = fsm_checked(g12l, ms12, label, backend=backend,
+                                run_kw=est, n_launches=None)
+        log(f"[plan] rmat12 3-fsm {backend}: estimated "
+            f"{checks.plans[label]}")
+        check_plans(label, checks.plans[label], ("estimated", "grown"))
+        note(checks)
+    del g12l
+
+    # the counted main paths at the main size, estimated
+    g16 = rmat(16, 16, seed=0)
+    for name, app in (("tc", make_tc_app()), ("4-cf", make_cf_app(4))):
+        for backend in ("cuda", "cuda-1p"):
+            got, instances, plans = mc_main(
+                g16, f"estimate {name}", app, expected[name], None, backend,
+                run_kw=est, path=PRUNED_PATH[backend])
+            check_plans(f"estimate {name} {backend}", plans,
+                        ("estimated", "grown"))
+            note_launches(launches, got, instances)
+            e2e_samples(g16, f"estimate {name}", app, expected[name],
+                        backend, run_kw=est)
+    g15l = rmat(15, 8, seed=0, labels=4)
+    fsm = make_fsm_app(3, FSM_SUPPORT, max_patterns=64)
+    for backend in ("cuda", "cuda-1p"):
+        label = f"estimate 3-fsm {backend}"
+        n, plans = fsm_main_path(g15l, FSM_SUPPORT, want15, backend=backend,
+                                 run_kw=est, label=label)
+        check_plans(label, plans, ("estimated", "grown"))
+        launches["extend_edge"] += n
+        e2e_samples(g15l, "estimate 3-fsm", fsm, FSM_FREQUENT, backend,
+                    run_kw=est)
+    del g15l
+    torch.cuda.empty_cache()
+
+    # plan transfer: RMAT-15 4-CF's plan (inspected) seeds RMAT-16 4-CF
+    g15 = rmat(15, 16, seed=0)
+    for backend in ("cuda", "cuda-1p"):
+        directory = PLAN_CACHE / backend
+        shutil.rmtree(directory, ignore_errors=True)
+        cache = PlanCache(str(directory))
+        donor = Miner(g15, make_cf_app(4), backend=backend)
+        donor.run(plan_cache=cache)
+        log(f"[plan] rmat15 4-cf {backend}: recorded {plans_of(donor)} in "
+            f"{directory}")
+        del donor
+        torch.cuda.empty_cache()
+        got, instances, plans = mc_main(
+            g16, "transfer 4-cf", make_cf_app(4), expected["4-cf"], None,
+            backend, run_kw={"plan_source": "cache", "plan_cache": cache},
+            path=PRUNED_PATH[backend])
+        check_plans(f"transfer 4-cf {backend}", plans, ("transfer",))
+        note_launches(launches, got, instances)
+    del g15, g16
+    torch.cuda.empty_cache()
+    return errs
+
+
+class _Killed(Exception):
+    """Raised by a checkpoint callback to stop a blocked run."""
+
+
+def blocks_phase(g12, expected12: dict, triangles16: int, expected: dict,
+                 launches: dict) -> dict:
+    """The [blocks] phase: edge blocks.  TC, 4-CF and 3-MC on RMAT-12 at a
+    block size of a sixth of the worklist on both backends, every launch
+    checked, and a 3-MC run killed after block 1 and resumed; then the
+    out-of-core row (RMAT-16 TC and 4-CF, relabeled, core pack at
+    134,217,728 B: estimated unblocked, then blocked at a quarter of its
+    ``peak_live_bytes``); then 3-MC on RMAT-16 at a 16 GiB budget, which
+    needs 2.48 G level-2 candidates, past the 2^30 slots of one level.
+    Returns the checks' largest errors by kernel."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (Miner, make_cf_app, make_mc_app,
+                                  make_tc_app)
+    from repro_torch.core.blocks import (auto_block_size, make_blocks,
+                                         scale_caps)
+    from repro_torch.core.plan import bucket_pow2, clip_caps, estimate_plan
+    from repro_torch.graph.generators import rmat
+    from repro_torch.kernels.extend_fused import ops
+
+    errs: dict = {}
+
+    def note(checks):
+        for k, v in checks.err.items():
+            errs[k] = max(errs.get(k, 0), v)
+
+    c3 = motif_census(g12, 3)
+    small = [("tc", make_tc_app(), expected12["tc"], None),
+             ("4-cf", make_cf_app(4), expected12["4-cf"], None),
+             ("3-mc", make_mc_app(3), sum(c3), c3)]
+    for name, app, count, p_map in small:
+        m = int(Miner(g12, app).init_edges()[0].shape[0])
+        size = -(-m // 6)
+        for backend in ("cuda", "cuda-1p"):
+            checks = mc_checked(g12, [(name, app, count, p_map)],
+                                f"blocks rmat12 {name} {backend}",
+                                pack_max_bytes=0, backend=backend,
+                                run_kw={"block_size": size})
+            log(f"[blocks] rmat12 {name} {backend}: "
+                f"{len(make_blocks(m, size))} blocks of {size}, plans "
+                f"{checks.plans[name]}")
+            note(checks)
+
+    # a run killed after block 1 and resumed from its checkpoint
+    size = -(-int(Miner(g12, make_mc_app(3)).init_edges()[0].shape[0]) // 6)
+    saved = []
+
+    def kill_after_1(block, _levels, payload):
+        saved.append(dict(payload))
+        if block == 1:
+            raise _Killed
+
+    try:
+        Miner(g12, make_mc_app(3)).run(block_size=size,
+                                       checkpoint_cb=kill_after_1)
+    except _Killed:
+        pass
+    else:
+        raise AssertionError("the checkpoint callback did not stop the run")
+    resumed = Miner(g12, make_mc_app(3)).run(block_size=size,
+                                             resume_from=saved[-1])
+    got = (resumed.count, [int(x) for x in resumed.p_map])
+    log(f"[blocks] rmat12 3-mc: killed after block {saved[-1]['block']} at "
+        f"count {saved[-1]['count']}, resumed to {got}")
+    if got != (sum(c3), c3):
+        raise AssertionError(f"resumed 3-mc {got} != census {c3}")
+    torch.cuda.empty_cache()
+
+    # the out-of-core row: RMAT-16 relabeled under the core pack, estimated
+    # unblocked, then blocked at a quarter of its analytic peak
+    g16 = rmat(16, 16, seed=0)
+    core = dict(relabel=True, pack_max_bytes=MIXED_BUDGET16)
+    for name, app in (("tc", make_tc_app()), ("4-cf", make_cf_app(4))):
+        for backend in ("cuda", "cuda-1p"):
+            label = f"oocore {name} {backend}"
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            full = Miner(g16, app, backend=backend, **core)
+            count_un = full.run(plan_source="estimate").count
+            peak_un, mem_un = (full.peak_live_bytes(),
+                               torch.cuda.max_memory_allocated())
+            del full
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_counts()
+            miner = Miner(g16, app, backend=backend, **core)
+            budget = max(peak_un // 4, 4096)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cold = miner.run(block_bytes=budget, plan_source="estimate")
+            torch.cuda.synchronize()
+            t_cold = time.perf_counter() - t0
+            q_cold = miner.block_queue
+            size = min(miner._executors)
+            t0 = time.perf_counter()
+            warm = miner.run(block_size=size)
+            torch.cuda.synchronize()
+            t_warm = time.perf_counter() - t0
+            mem_blk, peak_blk = (torch.cuda.max_memory_allocated(),
+                                 miner.peak_live_bytes())
+            got, instances = dict(ops.LAUNCHES), dict(ops.INSTANCE_LAUNCHES)
+            plain = sum(fn.calls for fn in ops.PLAIN_VERSIONS)
+            q = miner.block_queue
+            log(f"[blocks] {label}: unblocked {count_un}, peak_live_bytes "
+                f"{peak_un}, max_memory_allocated {mem_un}; blocked at "
+                f"block_bytes {budget}: {len(q_cold)} blocks of {size}, "
+                f"cold {cold.count} in {t_cold:.3f} s (stage_s "
+                f"{q_cold.stage_s:.4f}, mine_s {q_cold.mine_s:.4f}), warm "
+                f"{warm.count} in {t_warm:.3f} s (stage_s {q.stage_s:.4f}, "
+                f"mine_s {q.mine_s:.4f}), plans {plans_of(miner)}, "
+                f"peak_live_bytes {peak_blk}, max_memory_allocated "
+                f"{mem_blk}, pack_hit_rate {miner.pack_hit_rate():.4f}, "
+                f"launches {got}, modes {ops.mode_launches()}, plain calls "
+                f"{plain}")
+            if {count_un, cold.count, warm.count} != {expected[name]}:
+                raise AssertionError(f"{label}: counts {count_un} "
+                                     f"{cold.count} {warm.count} != scipy "
+                                     f"{expected[name]}")
+            if not peak_blk < peak_un or plain or len(q_cold) < 2:
+                raise AssertionError(f"{label}: peak_live_bytes {peak_blk} "
+                                     f"vs {peak_un}, plain {plain}, "
+                                     f"{len(q_cold)} blocks")
+            check_plans(label, plans_of(miner), ("estimated", "grown"))
+            note_launches(launches, got, instances, pack="core")
+            del miner, cold, warm
+    torch.cuda.empty_cache()
+
+    # 3-MC on RMAT-16: 2.48 G level-2 candidates in blocks at 16 GiB
+    census = wedge_census(g16, triangles16)
+    app = make_mc_app(3)
+    for backend in ("cuda", "cuda-1p"):
+        label = f"3-mc rmat16 {backend}"
+        miner = Miner(g16, app, backend=backend)
+        m = int(miner.init_edges()[0].shape[0])
+        caps, _ = estimate_plan(miner, bucket_pow2(m))
+        size = auto_block_size(m, caps, (), MC16_BLOCK_BYTES)
+        (seed,), _ = clip_caps(*scale_caps(
+            caps, (), bucket_pow2(size) / bucket_pow2(m)))
+        per = block_candidates(miner, size)
+        log(f"[blocks] {label}: worklist {m}, {sum(per)} level-2 "
+            f"candidates; full plan (estimated) {list(caps)}; block_bytes "
+            f"{MC16_BLOCK_BYTES}: {len(per)} blocks of {size}, candidates "
+            f"a block {per}; largest {max(per)} (block {int(np.argmax(per))})"
+            f" beside the seeded cand_cap {seed[0]} and 2^30 = {MAX_SLOTS}, "
+            f"mean {sum(per) // len(per)}")
+        del miner
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_counts()
+        miner = Miner(g16, app, backend=backend)
+        times, results = {}, {}
+        for run, kw in (("cold", {"block_bytes": MC16_BLOCK_BYTES,
+                                  "plan_source": "estimate"}),
+                        ("warm", {"block_size": size})):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results[run] = miner.run(**kw)
+            torch.cuda.synchronize()
+            times[run] = time.perf_counter() - t0
+        got, instances = dict(ops.LAUNCHES), dict(ops.INSTANCE_LAUNCHES)
+        plain = sum(fn.calls for fn in ops.PLAIN_VERSIONS)
+        plans = plans_of(miner)
+        (cap0, final, _, source, replans), = plans
+        q = miner.block_queue
+        kernel = PRUNED_PATH[backend][-1]
+        log(f"[blocks] {label}: cold "
+            f"{[results['cold'].count, *results['cold'].p_map.tolist()]} in "
+            f"{times['cold']:.3f} s, warm "
+            f"{[results['warm'].count, *results['warm'].p_map.tolist()]} in "
+            f"{times['warm']:.3f} s, {len(q)} blocks of cap0 {cap0}, seeded "
+            f"then final plan {final} ({source}), replans {replans}, stage_s "
+            f"{q.stage_s:.4f}, mine_s {q.mine_s:.4f}, max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated()}, launches {got}, plain "
+            f"calls {plain}")
+        for run, r in results.items():
+            if (r.count, r.p_map.tolist()) != (sum(census), census):
+                raise AssertionError(f"{label} {run}: {r.count} "
+                                     f"{r.p_map.tolist()} != census "
+                                     f"{census}")
+        if plain or got[kernel] < 2 * len(q) or max(per) > final[0][0] \
+                or final[0][0] > MAX_SLOTS or len(q) != len(per):
+            raise AssertionError(f"{label}: plain {plain}, launches {got}, "
+                                 f"largest block {max(per)} vs cand_cap "
+                                 f"{final[0][0]}")
+        check_plans(label, plans, ("estimated", "grown"))
+        note_launches(launches, got, instances)
+        del miner, results
+        torch.cuda.empty_cache()
+    del g16
+    torch.cuda.empty_cache()
     return errs
 
 
@@ -2257,7 +2691,7 @@ def main() -> int:
     timing.update(time_kernels(checks15.kept))
     checks15.kept.clear()
     torch.cuda.empty_cache()
-    launches["extend_edge"] = fsm_main_path(g15, FSM_SUPPORT, want15)
+    launches["extend_edge"], _ = fsm_main_path(g15, FSM_SUPPORT, want15)
     e2e_samples(g15, "3-fsm", make_fsm_app(3, FSM_SUPPORT, max_patterns=64),
                 FSM_FREQUENT, "cuda")
     profile_warm(g15, make_fsm_app(3, FSM_SUPPORT, max_patterns=64),
@@ -2276,6 +2710,14 @@ def main() -> int:
     t_phase = time.perf_counter()
     mixed_errs = mixed_phase(expected, census, timing, launches)
     log(f"[mixed] phase {time.perf_counter() - t_phase:.1f} s")
+
+    # the sampled planner and plan transfer, then edge blocks
+    t_phase = time.perf_counter()
+    plan_errs = plan_phase(g12, expected12, expected, want15, launches)
+    log(f"[plan] phase {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    blocks_errs = blocks_phase(g12, expected12, tri, expected, launches)
+    log(f"[blocks] phase {time.perf_counter() - t_phase:.1f} s")
 
     # LM serving: every flash-attention launch of sets A and B checked,
     # the kernel timed on set A's layer 0, the counted sets, then f32
@@ -2309,8 +2751,9 @@ def main() -> int:
     launches[K3_CF_ROW] = K3_SHAPES[timing[K3_CF_ROW]["shape"]]
     log(f"[main] extend_candidates launches by (k, cand_cap): "
         f"{dict(K3_SHAPES)}")
-    for name, err in {**mc_errs, **mixed_errs}.items():
-        errs[name] = max(errs.get(name, 0), err)
+    for more in (mc_errs, mixed_errs, plan_errs, blocks_errs):
+        for name, err in more.items():
+            errs[name] = max(errs.get(name, 0), err)
     for name, replaces in {**REPLACES, **K3_ROWS, **EDGE_REPLACES,
                            **LOOKBACK_REPLACES,
                            **MC_REPLACES, **MIXED_REPLACES,

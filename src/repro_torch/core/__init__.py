@@ -3,7 +3,9 @@ from repro_torch.core.api import (BranchSetSpec, CanonicalSpec, GraphCtx,
                                   MiningApp, PredicateSpec, make_ctx)
 from repro_torch.core.engine import Miner, MineResult, run_level_loop
 from repro_torch.core.plan import (HostCapPolicy, MiningExecutor, MiningPlan,
-                                   PlanCapPolicy, plan_signature)
+                                   PlanCache, PlanCapPolicy, estimate_plan,
+                                   plan_signature, profile_distance,
+                                   transfer_caps)
 from repro_torch.core.phases import (PhaseBackend, available_backends,
                                      get_backend, register_backend)
 from repro_torch.core.patterns import (Pattern, compile_pattern,

@@ -13,30 +13,45 @@ backend registry (:mod:`repro_torch.core.phases`).
 Vertex apps with ``needs_reduce`` (motif counting, pattern sets) end in
 the count reduce and return ``MineResult.p_map``, cold and warm.
 
-Not ported yet: edge blocks, the sampled estimator and the plan cache,
-bounded and sharded mining (``bounded_mine_edge``, the sharded FSM
-reduce), and the observability spans and metrics of ``repro.obs``.
+A cold run may also plan without inspection: from the sampled estimator
+(``plan_source="estimate"``) or from the cached plan of the nearest degree
+profile (``"cache"``, plan transfer).  Vertex apps can mine the level-0
+worklist in edge blocks (paper §5.2), of an explicit ``block_size`` or
+sized from a device-byte budget (``block_bytes``), streamed to the device
+by :class:`~repro_torch.core.blocks.BlockQueue`, with a checkpoint after
+each block and ``resume_from`` to restart after the last one.  Blocks are
+also the way past the 2^30 candidate slots one level may hold.
+
+Not ported yet: bounded and sharded mining (``bounded_mine_vertex``,
+``bounded_mine_edge``, ``mine_sharded``, the sharded FSM reduce), and the
+observability spans and metrics of ``repro.obs`` (the JAX package's
+``_note_live_bytes`` among them).
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.api import GraphCtx, MiningApp, make_ctx
+from repro_torch.core.blocks import (BlockQueue, auto_block_size,
+                                     estimate_live_bytes, make_blocks,
+                                     scale_caps)
 from repro_torch.core.embedding_list import (EmbeddingLevel,
                                              init_level0_edge,
                                              init_level0_vertex, materialize,
                                              materialize_edges, total_bytes)
 from repro_torch.core.phases import BackendSpec, get_backend
 from repro_torch.core.phases.reference import INT_MAX
-from repro_torch.core.plan import HostCapPolicy, MiningExecutor, bucket_pow2
+from repro_torch.core.plan import (HostCapPolicy, MiningExecutor, PlanCache,
+                                   bucket_pow2, compatible_caps,
+                                   estimate_plan, transfer_caps)
 from repro_torch.device import DeviceSpec, resolve_device
-from repro_torch.graph.csr import CSRGraph, Relabeling
+from repro_torch.graph.csr import CSRGraph, Relabeling, degree_profile
 from repro_torch.graph.csr import pack_hit_rate as _pack_hit_rate
 from repro_torch.graph.csr import relabel as relabel_graph
 from repro_torch.graph.dag import orient_dag
@@ -183,6 +198,9 @@ class _VertexPipeline:
             self.state = torch.zeros(self.emb.shape[:1], dtype=torch.int32,
                                      device=self.emb.device)
 
+    def checkpoint_payload(self):
+        return None if self.p_map is None else self.p_map.cpu().numpy()
+
     def result(self, stats) -> MineResult:
         return MineResult(
             count=int(self.n),
@@ -277,6 +295,10 @@ class _EdgePipeline:
                                             out_cap=out_cap)
             self._front = None
 
+    def checkpoint_payload(self):
+        return (None if self.supports is None
+                else self.supports.cpu().numpy())
+
     def result(self, stats) -> MineResult:
         codes = self.codes.cpu().numpy()
         supports = self.supports.cpu().numpy()
@@ -289,17 +311,21 @@ class _EdgePipeline:
         return self.codes, self.supports, policy.overflow()
 
 
-def run_level_loop(pipe, policy, collect_stats: bool = False
+def run_level_loop(pipe, policy, collect_stats: bool = False,
+                   checkpoint_cb: Optional[Callable] = None
                    ) -> list[LevelStats]:
     """Drive a pipeline through all levels under a capacity policy.
 
-    With a ``HostCapPolicy`` this is the host driver and ``collect_stats``
-    is honoured; with a ``PlanCapPolicy`` the loop reads nothing from the
-    device, so it must be off.
+    With a ``HostCapPolicy`` this is the host driver, and ``collect_stats``
+    and ``checkpoint_cb`` (called after each level as ``checkpoint_cb(level,
+    levels, payload)``, the payload the p_map or the FSM supports) are
+    honoured; with a ``PlanCapPolicy`` the loop reads nothing from the
+    device, so both must be off.
     """
     stats: list[LevelStats] = []
-    if policy.traceable and collect_stats:
-        raise ValueError("per-level stats need the host policy")
+    if policy.traceable and (collect_stats or checkpoint_cb is not None):
+        raise ValueError("per-level stats and checkpoints need the host "
+                         "policy")
 
     def record(level, n_cand, t0):
         last = pipe.levels[-1]
@@ -322,16 +348,22 @@ def run_level_loop(pipe, policy, collect_stats: bool = False
         pipe.reduce_filter(level, policy)
         if collect_stats:
             record(level, int(n_cand), t0)
+        if checkpoint_cb is not None:
+            checkpoint_cb(level, pipe.levels, pipe.checkpoint_payload())
     return stats
 
 
 class Miner:
     """Host-driver mining engine for one (graph, app, backend) triple.
 
-    The first :meth:`run` is the host inspection pass and records a
-    :class:`~repro_torch.core.plan.MiningPlan`; later runs replay it
-    through one :class:`~repro_torch.core.plan.MiningExecutor`, reading
-    the device once per run.  ``device=None`` runs on the CUDA device and
+    The first :meth:`run` is the host inspection pass (or, with
+    ``plan_source="estimate"`` or ``"cache"``, a sampled estimate or a
+    transferred plan) and records a
+    :class:`~repro_torch.core.plan.MiningPlan`; later runs, and every edge
+    block after the first, replay it through one
+    :class:`~repro_torch.core.plan.MiningExecutor` per level-0 capacity,
+    reading the device once per run or block (``block_queue`` is the last
+    blocked run's queue).  ``device=None`` runs on the CUDA device and
     raises when there is none; pass ``device="cpu"`` for the host.
     ``backend=None`` is the app's preferred backend, and else the ``cuda``
     backend.  A vertex app with ``needs_reduce`` (or a ``get_pattern``)
@@ -378,7 +410,16 @@ class Miner:
                              fuse_filter=fuse_filter)
         self._executors: dict[int, MiningExecutor] = {}
         self._digest: Optional[str] = None
+        self._profile: Optional[tuple[tuple[float, ...], int]] = None
         self._edges: Optional[tuple[torch.Tensor, torch.Tensor]] = None
+        self._edges_host: Optional[tuple[np.ndarray, np.ndarray]] = None
+        # the full-worklist estimate a byte budget was sized from:
+        # (caps, filter_caps, cap0), unclipped
+        self._full_plan: Optional[tuple] = None
+        # the last blocked run's queue (its stage_s and mine_s)
+        self.block_queue: Optional[BlockQueue] = None
+
+    # -- identity / executors ----------------------------------------------
 
     def graph_digest(self) -> str:
         """Stable fingerprint of the (oriented) CSR arrays and the labels;
@@ -393,6 +434,14 @@ class Miner:
             self._digest = h.hexdigest()[:16]
         return self._digest
 
+    def profile_sketch(self) -> tuple[tuple[float, ...], int]:
+        """Degree-profile sketch of the (oriented) graph, the identity plan
+        transfer compares."""
+        if self._profile is None:
+            self._profile = (degree_profile(self.graph),
+                             int(self.graph.n_edges))
+        return self._profile
+
     def pack_hit_rate(self) -> Optional[float]:
         """Degree-weighted probability that a connectivity probe answers
         from the packed bitmap (None when no pack was built)."""
@@ -400,13 +449,49 @@ class Miner:
             return None
         return _pack_hit_rate(self.graph, self.ctx.packed)
 
-    def executor(self, cap0: int) -> MiningExecutor:
+    def executor(self, cap0: int, plan_cache: Optional[PlanCache] = None
+                 ) -> MiningExecutor:
         """The (cached) executor for level-0 capacity ``cap0``."""
         ex = self._executors.get(cap0)
         if ex is None:
-            ex = MiningExecutor(self, cap0)
+            ex = MiningExecutor(self, cap0, cache=plan_cache)
             self._executors[cap0] = ex
+        else:
+            ex.attach_cache(plan_cache)
         return ex
+
+    def plan_reports(self) -> list[dict]:
+        """Public view of the executors' plans (for logging), each with
+        the backend's per-app capability dict."""
+        caps_report = self.backend.capabilities(self.app)
+        out = []
+        for cap0, ex in sorted(self._executors.items()):
+            if ex.plan is not None:
+                out.append({"cap0": cap0, "source": ex.plan.source,
+                            "caps": list(ex.plan.caps),
+                            "filter_caps": list(ex.plan.filter_caps),
+                            "out_cap_total":
+                                sum(o for _, o in ex.plan.caps)
+                                + sum(ex.plan.filter_caps),
+                            "executions": ex.n_executions,
+                            "replans": ex.n_replans,
+                            "capabilities": dict(caps_report)})
+        return out
+
+    def peak_live_bytes(self) -> Optional[int]:
+        """Analytic peak device-resident bytes over all planned executors
+        (:func:`~repro_torch.core.blocks.estimate_live_bytes`).  Blocked
+        runs plan at the block's ``cap0``, so they price below the same
+        workload unblocked."""
+        vals = [estimate_live_bytes(self.app.kind, ex.plan.caps,
+                                    ex.plan.filter_caps, ex.cap0)
+                for ex in self._executors.values() if ex.plan is not None]
+        return max(vals) if vals else None
+
+    def _p_map_meaningful(self) -> bool:
+        return self.app.get_pattern is not None or self.app.needs_reduce
+
+    # -- public ------------------------------------------------------------
 
     def init_edges(self):
         """Level-0 worklist: DAG edges (directed) or undirected src < dst.
@@ -421,27 +506,118 @@ class Miner:
                 self._edges = self.graph.undirected_edge_list()
         return self._edges
 
-    def run(self, collect_stats: bool = False, plan_source: str = "inspect",
-            block_size: Optional[int] = None) -> MineResult:
-        """Mine the graph.  A cold run inspects every level (the paper's
-        inspection-execution) and records the plan; a warm run replays it.
-        ``collect_stats`` forces the host path.  Blocks and the
-        ``estimate`` and ``cache`` plan sources are not ported yet and
-        raise."""
-        if plan_source != "inspect":
-            raise NotImplementedError(
-                f"plan_source={plan_source!r} is not ported yet")
-        if block_size:
-            raise NotImplementedError("edge blocks are not ported yet")
+    def run(self, block_size: Optional[int] = None,
+            collect_stats: bool = False,
+            checkpoint_cb: Optional[Callable] = None,
+            plan_cache: Optional[str | PlanCache] = None,
+            plan_source: str = "inspect", safety_factor: float = 2.0,
+            sample_size: int = 256, plan_seed: int = 0,
+            block_bytes: Optional[int] = None,
+            resume_from: Optional[dict] = None) -> MineResult:
+        """Mine the graph; ``plan_source`` picks how a cold run plans.
+
+        * ``"inspect"`` — the paper's inspection-execution: exact per-level
+          host inspection, which records the plan.  The default.
+        * ``"estimate"`` — the sampled estimator (``sample_size`` level-0
+          embeddings from ``plan_seed``, every capacity times
+          ``safety_factor``); the first run goes straight to the plan
+          replay, and the overflow backstop keeps the results exact.
+        * ``"cache"`` — first transfer the cached plan of the nearest
+          degree profile (across graphs and backends); else estimate.
+
+        ``block_size`` mines the vertex worklist in contiguous blocks
+        through one executor; ``block_bytes`` (without ``block_size``)
+        sizes them from a device-byte budget: the estimator prices the
+        full-worklist plan, :func:`~repro_torch.core.blocks.auto_block_size`
+        picks the largest block that fits, and the scaled plan seeds the
+        block executor.  A blocked run calls ``checkpoint_cb(block, None,
+        {"block", "count", "p_map"})`` after each block, and
+        ``resume_from`` (such a payload) skips the blocks it covers and
+        carries its totals.  FSM ignores both (paper §5.2).  An exact
+        plan-cache hit always wins; ``collect_stats`` and a per-level
+        ``checkpoint_cb`` force the host inspection path.  A level that
+        needs more than 2^30 candidate slots raises ``OverflowError``:
+        smaller blocks are the way past it.
+        """
+        if plan_source not in ("inspect", "estimate", "cache"):
+            raise ValueError(f"plan_source {plan_source!r} not in "
+                             "('inspect', 'estimate', 'cache')")
+        cache = (PlanCache(plan_cache) if isinstance(plan_cache, str)
+                 else plan_cache)
+        seeding = (None if plan_source == "inspect" or collect_stats
+                   or checkpoint_cb is not None
+                   else (plan_source, safety_factor, sample_size,
+                         plan_seed, cache))
         if self.app.kind == "edge":
-            return self._run_edge(collect_stats)
+            return self._run_edge(collect_stats, checkpoint_cb, cache,
+                                  seeding)
         src, dst = self.init_edges()
         m = int(src.shape[0])
+        if block_bytes and not block_size:
+            block_size = self._auto_block_size(m, block_bytes, sample_size,
+                                               safety_factor, plan_seed)
+        if not block_size or block_size >= m:
+            return self._run_vertex_full(src, dst, m, collect_stats,
+                                         checkpoint_cb, cache, seeding)
+        return self._run_vertex_blocked(m, block_size, collect_stats,
+                                        checkpoint_cb, cache, seeding,
+                                        resume_from)
+
+    def _auto_block_size(self, m: int, budget_bytes: int,
+                         sample_size: int = 256,
+                         safety_factor: float = 2.0,
+                         plan_seed: int = 0) -> int:
+        """Block size fitting ``budget_bytes``, from an estimated plan of
+        the full worklist, which is kept (unclipped) so the block executor
+        is seeded with its block-ratio rescale, not a second sample."""
         cap0 = bucket_pow2(m)
-        ex = self.executor(cap0)
-        if collect_stats or not ex.has_plan:
+        caps, fcaps = estimate_plan(self, cap0, sample_size=sample_size,
+                                    safety_factor=safety_factor,
+                                    seed=plan_seed)
+        self._full_plan = (caps, fcaps, cap0)
+        return auto_block_size(m, caps, fcaps, budget_bytes,
+                               kind=self.app.kind)
+
+    def _seed_plan(self, ex: MiningExecutor, seeding) -> None:
+        """Give a cold executor an estimated or transferred plan."""
+        if seeding is None or ex.has_plan:
+            return
+        plan_source, safety_factor, sample_size, plan_seed, cache = seeding
+        if plan_source == "cache" and cache is not None:
+            profile, n_edges = self.profile_sketch()
+            near = cache.nearest(ex.app_key, self.app.kind, profile,
+                                 n_edges, exclude=(ex.signature,),
+                                 transfer_key=ex.transfer_key,
+                                 cap0=ex.cap0)
+            # a cross-backend match may still have another cap schedule
+            # (another max_size): shape-check it, else estimate
+            if near is not None and compatible_caps(near, self.app):
+                caps, fcaps = transfer_caps(near, ex.cap0, safety_factor)
+                ex.adopt_plan(caps, fcaps, source="transfer")
+                return
+        caps, fcaps = estimate_plan(self, ex.cap0, sample_size=sample_size,
+                                    safety_factor=safety_factor,
+                                    seed=plan_seed)
+        ex.adopt_plan(caps, fcaps, source="estimated")
+
+    def _host_run(self, pipe, executor: MiningExecutor, collect_stats: bool,
+                  checkpoint_cb: Optional[Callable] = None) -> MineResult:
+        """Inspection-execution host run; records the executor's plan."""
+        policy = HostCapPolicy()
+        stats = run_level_loop(pipe, policy, collect_stats, checkpoint_cb)
+        executor.adopt_plan(policy.caps, policy.filter_caps)
+        return pipe.result(stats)
+
+    # -- vertex-induced paths ----------------------------------------------
+
+    def _run_vertex_full(self, src, dst, m, collect_stats, checkpoint_cb,
+                         cache, seeding=None) -> MineResult:
+        cap0 = bucket_pow2(m)
+        ex = self.executor(cap0, cache)
+        self._seed_plan(ex, seeding)
+        if collect_stats or checkpoint_cb is not None or not ex.has_plan:
             return self._host_run(_VertexPipeline(self.ops, src, dst, m),
-                                  ex, collect_stats)
+                                  ex, collect_stats, checkpoint_cb)
         pad = cap0 - m
         src = torch.nn.functional.pad(src, (0, pad))
         dst = torch.nn.functional.pad(dst, (0, pad))
@@ -449,16 +625,66 @@ class Miner:
         return MineResult(count=count,
                           p_map=p_map if self._p_map_meaningful() else None)
 
-    def _p_map_meaningful(self) -> bool:
-        return self.app.get_pattern is not None or self.app.needs_reduce
+    def worklist_host(self) -> tuple[np.ndarray, np.ndarray]:
+        """The level-0 worklist (:meth:`init_edges`) as host numpy arrays,
+        read from the device once per Miner: what the block queue
+        stages."""
+        if self._edges_host is None:
+            self._edges_host = tuple(t.cpu().numpy()
+                                     for t in self.init_edges())
+        return self._edges_host
 
-    def _host_run(self, pipe, executor: MiningExecutor,
-                  collect_stats: bool) -> MineResult:
-        """Inspection-execution host run; records the executor's plan."""
-        policy = HostCapPolicy()
-        stats = run_level_loop(pipe, policy, collect_stats)
-        executor.adopt_plan(policy.caps, policy.filter_caps)
-        return pipe.result(stats)
+    def _run_vertex_blocked(self, m, block_size, collect_stats,
+                            checkpoint_cb, cache, seeding=None,
+                            resume_from=None) -> MineResult:
+        # Edge blocking (§5.2): contiguous level-0 blocks streamed through
+        # one executor, bounding peak memory; counts and pattern maps
+        # accumulate.  Only the first block of a cold miner runs the host
+        # inspection (which plans), unless an estimated, transferred or
+        # block-ratio-rescaled plan lets it skip even that.
+        cap0 = bucket_pow2(block_size)
+        ex = self.executor(cap0, cache)
+        if not ex.has_plan and self._full_plan is not None:
+            fcaps, ffcaps, fcap0 = self._full_plan
+            sc, fc = scale_caps(fcaps, ffcaps, cap0 / fcap0)
+            ex.adopt_plan(sc, fc, source="estimated")
+        self._seed_plan(ex, seeding)
+        total = 0
+        p_map = None
+        done = -1                 # last completed block index
+        if resume_from:
+            done = int(resume_from.get("block", -1))
+            total = int(resume_from.get("count", 0))
+            pm = resume_from.get("p_map")
+            p_map = None if pm is None else np.asarray(pm, dtype=np.int64)
+        stats: list[LevelStats] = []
+        blocks = [b for b in make_blocks(m, block_size) if b.index > done]
+        self.block_queue = BlockQueue(self.worklist_host(), blocks, cap0,
+                                      self.device)
+        for blk, (s, d) in self.block_queue:
+            if collect_stats or not ex.has_plan:
+                r = self._host_run(_VertexPipeline(self.ops, s, d, blk.n),
+                                   ex, collect_stats)
+                cnt, pm = r.count, r.p_map
+                stats.extend(r.stats)
+                del r                 # the block's levels
+            else:
+                cnt, pm_arr = ex.execute(s, d, blk.n)
+                pm = pm_arr if self._p_map_meaningful() else None
+            del s, d
+            total += cnt
+            if pm is not None:
+                # summed in int64: the pattern maps of many blocks may pass
+                # what one block's int32 map holds
+                pm = np.asarray(pm, dtype=np.int64)
+                p_map = pm if p_map is None else p_map + pm
+            if checkpoint_cb is not None:
+                checkpoint_cb(blk.index, None,
+                              {"count": total, "p_map": p_map,
+                               "block": blk.index})
+        return MineResult(count=total, p_map=p_map, stats=stats)
+
+    # -- edge-induced (FSM) path -------------------------------------------
 
     def edge_worklist(self):
         """Level-0 worklist of the edge-induced replay: (src, dst, eid),
@@ -469,15 +695,18 @@ class Miner:
         return tuple(torch.nn.functional.pad(t, pad)
                      for t in (self.ctx.usrc, self.ctx.udst, eid))
 
-    def _run_edge(self, collect_stats: bool) -> MineResult:
+    def _run_edge(self, collect_stats, checkpoint_cb, cache,
+                  seeding=None) -> MineResult:
         """The edge-induced (FSM) path: the whole undirected edge list is
-        the level-0 worklist (the paper disables blocking for FSM)."""
+        the level-0 worklist (the paper disables blocking for FSM, whose
+        support is global)."""
         m = self.ctx.n_uedges
         cap0 = bucket_pow2(m)
-        ex = self.executor(cap0)
-        if collect_stats or not ex.has_plan:
+        ex = self.executor(cap0, cache)
+        self._seed_plan(ex, seeding)
+        if collect_stats or checkpoint_cb is not None or not ex.has_plan:
             return self._host_run(_EdgePipeline(self.ops), ex,
-                                  collect_stats)
+                                  collect_stats, checkpoint_cb)
         codes, supports = ex.execute_edge(*self.edge_worklist(), m)
         return MineResult(count=_frequent(self.app, codes, supports),
                           codes=codes, supports=supports)

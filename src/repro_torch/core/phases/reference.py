@@ -54,8 +54,8 @@ def check_cand_cap(cand_cap: int) -> None:
     if cand_cap > MAX_CAND_CAP:
         raise OverflowError(
             f"cand_cap={cand_cap} > 2^30: candidate slots are int32; more "
-            "candidates per level need edge blocks, which are not ported "
-            "yet")
+            "candidates per level need edge blocks (Miner.run's block_size "
+            "or block_bytes)")
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,16 @@ ROOT = Path(__file__).resolve().parents[1]
 APPS = (("tc", make_tc_app()), ("4-cf", make_cf_app(4)))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch CPU ops on one thread: the suite's worker processes would
+    otherwise oversubscribe the cores (``test_torch_mixed.py``)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
@@ -570,3 +580,111 @@ def test_e2e_samples_time_fresh_miners_and_hold_the_count():
     with pytest.raises(AssertionError, match="tc cuda cold"):
         smoke.e2e_samples(g, "tc", make_tc_app(), expected["tc"] + 1,
                           "cuda", n=1)
+
+
+# -- the [plan] and [blocks] phases: estimated, transferred and blocked runs
+
+
+def _plan_runs(smoke, g, expected):
+    from repro_torch.core import make_mc_app
+    c3 = smoke.motif_census(g, 3)
+    return [("tc", make_tc_app(), expected["tc"], None),
+            ("4-cf", make_cf_app(4), expected["4-cf"], None),
+            ("3-mc", make_mc_app(3), sum(c3), c3)]
+
+
+def _small_graph_and_counts(smoke):
+    g = rmat(5, 8, seed=0, device="cpu")
+    return g, dict(zip(("tc", "4-cf"), smoke.scipy_counts(g)))
+
+
+@pytest.mark.parametrize("backend", ["cuda", "cuda-1p"])
+def test_plan_checks_hold_every_launch_the_probes_included(backend):
+    from repro_torch.core.plan import SAMPLE_CAND_CAP
+    smoke = _smoke()
+    g, expected = _small_graph_and_counts(smoke)
+    checks = smoke.mc_checked(g, _plan_runs(smoke, g, expected), "cpu",
+                              pack_max_bytes=0, backend=backend, chunk=4096,
+                              run_kw={"plan_source": "estimate"},
+                              names=smoke.PRUNED_PATH[backend])
+    assert set(checks.err.values()) == {0}
+    assert set(checks.launches) == set(smoke.PRUNED_PATH[backend])
+    assert checks.cand_caps[SAMPLE_CAND_CAP] >= 3         # a probe an app
+    for name in ("tc", "4-cf", "3-mc"):
+        (plan,) = checks.plans[name]
+        assert plan[3] in ("estimated", "grown")
+        smoke.check_plans(name, checks.plans[name], ("estimated", "grown"))
+
+
+@pytest.mark.parametrize("backend", ["cuda", "cuda-1p"])
+def test_blocked_checks_hold_every_launch(backend):
+    smoke = _smoke()
+    g, expected = _small_graph_and_counts(smoke)
+    checks = smoke.mc_checked(g, _plan_runs(smoke, g, expected), "cpu",
+                              pack_max_bytes=0, backend=backend, chunk=512,
+                              run_kw={"block_size": 40})
+    assert set(checks.err.values()) == {0}
+    # the first block is inspected (K3), the rest replay the plan
+    assert checks.launches["extend_candidates"] >= 3
+    assert all(p[0][0] == 128 for p in checks.plans.values())
+
+
+def test_fsm_plan_checks_hold_every_edge_launch():
+    smoke = _smoke()
+    g = rmat(6, 8, seed=0, labels=4, device="cpu")
+    ms = min(smoke.scipy_fsm(g, 0)[2]) + 1
+    checks, _ = smoke.fsm_checked(g, ms, "cpu", chunk=4096,
+                                  run_kw={"plan_source": "estimate"},
+                                  n_launches=None)
+    assert checks.err == {"extend_edge": 0}
+    assert checks.launches["extend_edge"] >= 3          # probe, cold, warm
+    smoke.check_plans("cpu", checks.plans["cpu"], ("estimated", "grown"))
+
+
+def test_check_plans_refuses_unclipped_or_misnamed_plans():
+    smoke = _smoke()
+    ok = (128, [(1 << 30, 1 << 29)], [], "estimated", 0)
+    smoke.check_plans("ok", [ok], ("estimated",))
+    for bad in ((128, [(1 << 31, 128)], [], "estimated", 0),
+                (128, [(256, 512)], [], "estimated", 0),
+                (128, [(256, 128)], [1 << 31], "estimated", 0),
+                (128, [(256, 128)], [], "grown", 0),
+                (128, [(256, 128)], [], "estimated", 1),
+                (128, [(256, 128)], [], "inspect", 0)):
+        with pytest.raises(AssertionError):
+            smoke.check_plans("bad", [bad], ("estimated", "grown"))
+    with pytest.raises(AssertionError, match="no plan"):
+        smoke.check_plans("none", [], ("estimated",))
+
+
+def test_wedge_census_and_block_candidates_count_what_the_miner_sees():
+    from repro_torch.core import Miner, make_mc_app
+    smoke = _smoke()
+    g, expected = _graph_and_counts(smoke)
+    assert smoke.wedge_census(g, expected["tc"]) == smoke.motif_census(g, 3)
+    m = Miner(g, make_mc_app(3), device="cpu")
+    (level2,) = m.run(collect_stats=True).stats
+    per = smoke.block_candidates(m, 100)
+    assert sum(per) == level2.n_candidates
+    assert len(per) == -(-int(m.init_edges()[0].shape[0]) // 100)
+
+
+def test_note_launches_adds_each_run_to_its_rows():
+    smoke = _smoke()
+    launches = {"extend_count": 1, "extend_count:branches": 0,
+                "extend_count:clique-mixed-core": 0}
+    smoke.note_launches(launches, {"extend_count": 5},
+                        {("extend_count", "branches", "search"): 2,
+                         ("extend_count", "clique", "mixed"): 3,
+                         ("extend_count", "clique", "search"): 4},
+                        pack="core")
+    assert launches == {"extend_count": 6, "extend_count:branches": 2,
+                        "extend_count:clique-mixed-core": 3}
+
+
+def test_e2e_samples_pass_the_run_options():
+    smoke = _smoke()
+    g, expected = _graph_and_counts(smoke)
+    out = smoke.e2e_samples(g, "tc", make_tc_app(), expected["tc"], "cuda",
+                            n=2, run_kw={"plan_source": "estimate"})
+    assert set(out) == {"cold", "warm"}

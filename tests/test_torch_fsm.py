@@ -207,8 +207,11 @@ def test_cuda_backend_edge_capabilities_and_refusals():
     # so the mask it replaces dropped nothing)
     assert Miner(g(), batch, backend="torch-ref", device="cpu").run().count \
         == Miner(g(), make_fsm_app(3, 2), device="cpu").run().count
-    with pytest.raises(NotImplementedError, match="blocks"):
-        Miner(g(), make_fsm_app(3, 2), device="cpu").run(block_size=4)
+    # FSM's support is global, so the edge path ignores block sizes (paper
+    # §5.2), as the JAX package does
+    assert Miner(g(), make_fsm_app(3, 2), device="cpu").run(
+        block_size=4).count == Miner(g(), make_fsm_app(3, 2),
+                                     device="cpu").run().count
 
 
 @pytest.mark.parametrize("backend", ["torch-ref", "cuda"])

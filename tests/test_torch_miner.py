@@ -24,6 +24,16 @@ GRAPHS = {"er80": (lambda: G.erdos_renyi(80, 0.1, seed=0),
                     lambda: TG.rmat(8, seed=0, device="cpu")),
           "clique7": (lambda: G.clique(7), lambda: TG.clique(7,
                                                             device="cpu"))}
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch CPU ops on one thread: the suite's worker processes would
+    otherwise oversubscribe the cores (``test_torch_mixed.py``)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 APPS = {"tc": (jax_make_tc_app, make_tc_app),
         "4-cf": (lambda: jax_make_cf_app(4), lambda: make_cf_app(4))}
 
@@ -124,8 +134,19 @@ def test_miner_needs_a_card_unless_asked_for_cpu(monkeypatch):
 
 
 def test_unported_run_modes_raise():
-    m = Miner(TG.clique(6, device="cpu"), make_tc_app(), device="cpu")
-    with pytest.raises(NotImplementedError, match="estimate"):
-        m.run(plan_source="estimate")
-    with pytest.raises(NotImplementedError, match="blocks"):
-        m.run(block_size=4)
+    """The run modes that raised before the planner and the blocks were
+    ported (``plan_source="estimate"`` and ``"cache"``, ``block_size``,
+    ``block_bytes``, ``checkpoint_cb``, ``resume_from``) now run and equal
+    the inspect run; only an unknown ``plan_source`` raises, ValueError as
+    in the JAX package."""
+    g = TG.rmat(6, seed=0, device="cpu")
+    want = Miner(g, make_cf_app(4), device="cpu").run().count
+    for kw in ({"plan_source": "estimate"}, {"plan_source": "cache"},
+               {"block_size": 48}, {"block_bytes": 1 << 14},
+               {"block_size": 48, "plan_source": "estimate"},
+               {"checkpoint_cb": lambda *a: None},
+               {"block_size": 48, "resume_from": {"block": -1}}):
+        m = Miner(g, make_cf_app(4), device="cpu")
+        assert [m.run(**kw).count for _ in "ab"] == [want, want], kw
+    with pytest.raises(ValueError, match="plan_source"):
+        m.run(plan_source="exact")
