@@ -141,7 +141,33 @@ Phases (any failure raises, and the script exits non-zero):
               the host, the final plan and its replans, the count and p_map
               against the census (wedges from the degrees, triangles from
               scipy), no plain call.
-12. lm      — Qwen3-0.6B at full width in bf16 (random weights from seed 0)
+12. sharded — ``mine_sharded`` over a ``torch.distributed`` process group.
+              World size 1 over ``nccl`` in this process (a real
+              communicator, its collectives on the card): RMAT-16 TC and
+              4-CF on ``cuda`` and ``cuda-1p`` and 3-FSM on ``rmat(15, 8,
+              seed=0, labels=4)`` at 2500, at the caps of the single-card
+              inspected plan, every launch held against its plain version,
+              then the launches counted (every kernel of the path, no
+              plain call), each answer against ``Miner.run``'s and
+              scipy's, with the wall time, the ``shard.mine`` and
+              ``shard.merge`` spans (the card synchronised at their ends)
+              and the warm ``Miner.run`` time beside it.  Then four
+              ``gloo`` ranks sharing the card (NCCL refuses two ranks on
+              one card), spawned after the build: RMAT-16 TC and the
+              RMAT-15 3-FSM from the single-card caps scaled to their
+              block (safety 2), doubled while any rank overflows; each
+              rank's answer against world size 1's, its launches, rounds,
+              ``max_memory_allocated`` and wall time.
+13. cli     — ``repro_torch.launch.mine.main`` in this process on the card:
+              ``--graph rmat:16`` (edge factor 8, the CLI's spec) with
+              ``--app tc`` and ``--app 4-cf`` under ``--trace`` and
+              ``--metrics`` (both files under the ignored ``build/cli/``
+              checked by ``repro_torch.obs.validate``) and ``--fused-tc``;
+              ``serve --mine --queries tc,4-cf``; every count against
+              scipy, the launches counted; then a warm replay under
+              tracing shown free of device syncs up to its final read, and
+              a traced warm run that records no level and no op span.
+14. lm      — Qwen3-0.6B at full width in bf16 (random weights from seed 0)
               served through ``serve_lm``: request set A (batch 4, prompt
               4,096 tokens, 32 new) and set B (batch 1, prompt 32,768, 8
               new), every ``flash_attention`` launch of both held against
@@ -157,7 +183,7 @@ Phases (any failure raises, and the script exits non-zero):
               prompt 512, TF32 off, the FMA variant): prefill on the
               kernel against prefill on the plain attention (last-token
               logits within 1e-3) and the same 8 greedy tokens.
-13. segsum  — the segment sum ``sorted_segment_sum`` at ogb_products'
+15. segsum  — the segment sum ``sorted_segment_sum`` at ogb_products'
               scale (``configs/shapes.py``: 61,859,140 rows of 100 f32
               values into 2,449,029 sorted segments, 24.7 GB): sorted,
               unsorted and bf16 launches held against the plain version,
@@ -2225,6 +2251,434 @@ def blocks_phase(g12, expected12: dict, triangles16: int, expected: dict,
 
 
 # ---------------------------------------------------------------------------
+# Multi-device mining: mine_sharded over a process group
+
+
+def plain_calls() -> int:
+    """Calls of every plain version of the mining kernels so far."""
+    from repro_torch.kernels.extend_fused import ops
+    return sum(fn.calls for fn in ops.PLAIN_VERSIONS)
+
+
+def sharded_result(result) -> tuple:
+    """A ``mine_sharded`` result as plain lists, to compare and print:
+    (count, p_map) of a vertex app, (count, codes, supports) of FSM; the
+    overflow flag dropped."""
+    return tuple(x.tolist() if hasattr(x, "tolist") else x
+                 for x in result[:-1])
+
+
+def miner_result(miner, result) -> tuple:
+    """A ``Miner.run`` result in :func:`sharded_result`'s form."""
+    if miner.app.kind == "edge":
+        return result.count, result.codes.tolist(), result.supports.tolist()
+    p_map = (result.p_map if result.p_map is not None
+             else [0] * miner.app.max_patterns)
+    return result.count, [int(x) for x in p_map]
+
+
+def single_card_plan(graph, app, backend: str) -> tuple:
+    """Cold (inspected) then warm ``Miner.run`` on one device: (the warm
+    result in :func:`sharded_result`'s form, the plan's caps, filter caps
+    and level-0 worklist size, the warm run's seconds)."""
+    import torch
+    from repro_torch.core import Miner
+
+    on_card = graph.device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    miner = Miner(graph, app, backend=backend, device=graph.device)
+    cold = miner_result(miner, miner.run())
+    sync()
+    t0 = time.perf_counter()
+    warm = miner.run()
+    sync()
+    warm_s = time.perf_counter() - t0
+    warm = miner_result(miner, warm)
+    if cold != warm:
+        raise AssertionError(f"cold {cold} != warm {warm}")
+    (ex,) = miner._executors.values()
+    m = (miner.ctx.n_uedges if app.kind == "edge"
+         else int(miner.init_edges()[0].shape[0]))
+    plan = (tuple(ex.plan.caps), tuple(ex.plan.filter_caps), m)
+    del miner
+    return warm, plan, warm_s
+
+
+def sharded_checked(group, graph, app, caps, filter_caps, backend: str,
+                    names, label: str, chunk: int = 1 << 25):
+    """``mine_sharded`` on ``group`` with every launch of the kernels
+    ``names`` held against its plain version; returns (the result, the
+    checks)."""
+    from repro_torch.core import mine_sharded
+
+    checks = KernelChecks(chunk, names)
+    with checks:
+        result = mine_sharded(graph, app, caps, group=group, backend=backend,
+                              filter_caps=filter_caps, device=graph.device)
+    checks.report(label)
+    if min(checks.launches.values()) < 1:
+        raise AssertionError(f"{label}: a kernel was never checked")
+    if result[-1]:
+        raise AssertionError(f"{label}: overflowed at the single-card caps")
+    return result, checks
+
+
+def sharded_counted(group, graph, app, caps, filter_caps, backend: str,
+                    path, label: str) -> tuple:
+    """``mine_sharded`` on ``group`` with the launches counted (set to 0
+    just before, read just after) and its ``shard.mine`` and
+    ``shard.merge`` spans traced with the card synchronised at their ends:
+    (the result, the launches, the instantiations, wall, mine and merge
+    seconds).  Every kernel of ``path`` must launch, no other and no plain
+    version."""
+    import torch
+    from repro_torch.core import mine_sharded
+    from repro_torch.kernels.extend_fused import ops
+    from repro_torch.obs import trace
+
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    tracer = trace.enable(sync=True)
+    try:
+        t0 = time.perf_counter()
+        result = mine_sharded(graph, app, caps, group=group, backend=backend,
+                              filter_caps=filter_caps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        trace.disable()
+    got = {k: n for k, n in ops.LAUNCHES.items() if n}
+    instances = dict(ops.INSTANCE_LAUNCHES)
+    plain = plain_calls()
+    spans = {e["name"]: e["dur"] / 1e6 for e in tracer.events}
+    if plain or set(got) != set(path) or result[-1]:
+        raise AssertionError(f"{label}: launches {got} (path {path}), plain "
+                             f"calls {plain}, overflow {result[-1]}")
+    return (result, got, instances, wall, spans["shard.mine"],
+            spans["shard.merge"])
+
+
+def shared_card_rank(rank: int, group, device, jobs) -> list:
+    """One rank of the four that share the card: each job ``(label, graph
+    args, app args, caps, filter caps, backend)`` mined once with
+    ``mine_sharded`` at its first caps, every launch held against its
+    plain version (pieces of ``SHARED_CHUNK`` slots, so that four ranks'
+    plain temporaries fit beside their outputs), then counted: mined with
+    its caps doubled while any rank overflows.  Gathers every rank's
+    per-job record (result, rounds, final caps, launches, plain calls,
+    peak bytes, wall seconds, the checked launches and their largest
+    errors) to every rank."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import (make_cf_app, make_fsm_app, make_tc_app,
+                                  mine_sharded)
+    from repro_torch.graph.generators import rmat
+    from repro_torch.kernels.extend_fused import ops
+
+    apps = {"tc": make_tc_app, "4-cf": lambda: make_cf_app(4),
+            "3-fsm": lambda ms: make_fsm_app(3, ms, max_patterns=64)}
+    on_card = device.type == "cuda"
+    out = {}
+    for label, gargs, (aname, *aargs), caps, fcaps, backend in jobs:
+        graph = rmat(*gargs[:2], seed=gargs[2], labels=gargs[3],
+                     device=device)
+        app = apps[aname](*aargs)
+        names = (tuple(EDGE_REPLACES) if app.kind == "edge"
+                 else PRUNED_PATH[backend])
+        checks = KernelChecks(SHARED_CHUNK, names)
+        with checks:
+            mine_sharded(graph, app, caps, group=group, backend=backend,
+                         filter_caps=fcaps, device=device)
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        ops.reset_counts()
+        dist.barrier(group)
+        t0 = time.perf_counter()
+        rounds = 0
+        while True:
+            rounds += 1
+            result = mine_sharded(graph, app, caps, group=group,
+                                  backend=backend, filter_caps=fcaps,
+                                  device=device)
+            if not result[-1]:
+                break
+            caps = tuple((2 * c, 2 * o) for c, o in caps)
+            fcaps = None if fcaps is None else tuple(2 * f for f in fcaps)
+        if on_card:
+            torch.cuda.synchronize(device)
+        out[label] = {
+            "result": sharded_result(result), "rounds": rounds,
+            "caps": [list(caps), list(fcaps or ())],
+            "launches": {k: n for k, n in ops.LAUNCHES.items() if n},
+            "plain": plain_calls(),
+            "peak": (torch.cuda.max_memory_allocated(device) if on_card
+                     else 0),
+            "wall": time.perf_counter() - t0,
+            "checked": dict(checks.launches), "err": dict(checks.err)}
+        del graph, checks
+    ranks = [None] * dist.get_world_size(group)
+    dist.all_gather_object(ranks, out, group=group)
+    return ranks
+
+
+SHARDED_WORLD = 4                # ranks that share the card
+SHARED_CHUNK = 1 << 24           # their checks' plain pieces, in slots
+
+
+def sharded_phase(expected: dict, want15: list, launches: dict) -> dict:
+    """The [sharded] phase: ``mine_sharded`` over a process group.  World
+    size 1 over ``nccl`` in this process: RMAT-16 TC and 4-CF on ``cuda``
+    and ``cuda-1p`` and 3-FSM on ``rmat(15, 8, seed=0, labels=4)`` at
+    2500, at the single-card inspected plan's caps, every launch checked,
+    then counted, each answer against ``Miner.run``'s and scipy's; then
+    four ``gloo`` ranks sharing the card mine RMAT-16 TC and the RMAT-15
+    3-FSM from the single-card caps scaled to their block (safety 2), a
+    first round with every launch checked, then counted with the caps
+    doubled while any rank overflows, each answer against world size 1's.
+    Returns the checks' largest errors by kernel."""
+    import tempfile
+
+    import torch
+    from repro_torch.core import make_cf_app, make_fsm_app, make_tc_app
+    from repro_torch.core.blocks import scale_caps
+    from repro_torch.core.plan import bucket_pow2
+    from repro_torch.graph.generators import rmat
+    from repro_torch.launch import mesh
+
+    errs: dict = {}
+    g16 = rmat(16, 16, seed=0)
+    g15l = rmat(15, 8, seed=0, labels=4)
+    fsm = make_fsm_app(3, FSM_SUPPORT, max_patterns=64)
+    runs = [("tc", g16, make_tc_app(), "cuda"),
+            ("tc", g16, make_tc_app(), "cuda-1p"),
+            ("4-cf", g16, make_cf_app(4), "cuda"),
+            ("4-cf", g16, make_cf_app(4), "cuda-1p"),
+            ("3-fsm", g15l, fsm, "cuda")]
+    world1: dict = {}
+    plans: dict = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        group, _ = mesh.init_group(str(Path(tmp) / "store"), 0, 1, "nccl")
+        try:
+            for name, graph, app, backend in runs:
+                label = f"sharded world 1 {name} {backend}"
+                torch.cuda.empty_cache()
+                want, plans[name], warm_s = single_card_plan(graph, app,
+                                                             backend)
+                caps, fcaps, _ = plans[name]
+                fc = fcaps if app.kind == "edge" else None
+                edge = app.kind == "edge"
+                names = (tuple(EDGE_REPLACES) if edge
+                         else PRUNED_PATH[backend])
+                result, checks = sharded_checked(group, graph, app, caps, fc,
+                                                 backend, names, label)
+                for k, v in checks.err.items():
+                    errs[k] = max(errs.get(k, 0), v)
+                del checks
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                result, got, instances, wall, mine_s, merge_s = \
+                    sharded_counted(group, graph, app, caps, fc, backend,
+                                    names, label)
+                got_r = sharded_result(result)
+                truth = ((FSM_FREQUENT, want15) if edge
+                         else expected[name])
+                log(f"[sharded] world 1 nccl {name} {backend}: "
+                    f"{got_r[0]}{' patterns' if edge else ''}, caps "
+                    f"{list(caps)}{f' filter caps {list(fc)}' if edge else ''}"
+                    f", wall {wall:.4f} s (shard.mine {mine_s:.4f} s, "
+                    f"shard.merge {merge_s:.6f} s) beside Miner.run warm "
+                    f"{warm_s:.4f} s, peak {torch.cuda.max_memory_allocated()} "
+                    f"B, launches {got}, plain calls 0")
+                if got_r != want:
+                    raise AssertionError(f"{label}: {got_r[0]} != Miner.run "
+                                         f"{want[0]}")
+                if edge:
+                    sup = sorted(s for c, s in zip(got_r[1], got_r[2])
+                                 if s >= FSM_SUPPORT and c != 2**31 - 1)
+                    if (got_r[0], sup) != truth:
+                        raise AssertionError(f"{label}: {got_r[0]} patterns, "
+                                             f"supports {sup} != scipy "
+                                             f"{truth}")
+                elif got_r[0] != truth:
+                    raise AssertionError(f"{label}: {got_r[0]} != scipy "
+                                         f"{truth}")
+                world1[name] = got_r
+                note_launches(launches, got, instances)
+                del result
+        finally:
+            mesh.close_group()
+    del g16, g15l
+    torch.cuda.empty_cache()
+
+    # four gloo ranks sharing the card, each from the single-card plan
+    # scaled to its block (safety 2)
+    jobs = []
+    for name, gargs, aargs in (("tc", (16, 16, 0, None), ("tc",)),
+                               ("3-fsm", (15, 8, 0, 4),
+                                ("3-fsm", FSM_SUPPORT))):
+        caps, fcaps, m = plans[name]
+        ratio = 2 * bucket_pow2(-(-m // SHARDED_WORLD)) / bucket_pow2(m)
+        caps, fcaps = scale_caps(caps, fcaps, ratio)
+        jobs.append((name, gargs, aargs, caps,
+                     fcaps if name == "3-fsm" else None, "cuda"))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = mesh.spawn(shared_card_rank, SHARDED_WORLD, backend="gloo",
+                       device="cuda", args=(jobs,))
+    wall = time.perf_counter() - t0
+    for name, *_ in jobs:
+        per = [r[name] for r in ranks]
+        for i, rec in enumerate(per):
+            log(f"[check] {SHARDED_WORLD} ranks gloo {name} rank {i}: "
+                f"launches {rec['checked']}, max_abs_err {rec['err']}")
+            if min(rec["checked"].values()) < 1:
+                raise AssertionError(f"{SHARDED_WORLD} ranks {name} rank {i}:"
+                                     " a kernel was never checked")
+            for k, v in rec["err"].items():
+                errs[k] = max(errs.get(k, 0), v)
+            log(f"[sharded] {SHARDED_WORLD} ranks gloo {name} rank {i}: "
+                f"{rec['result'][0]}, rounds {rec['rounds']}, final caps "
+                f"{rec['caps']}, launches {rec['launches']}, plain calls "
+                f"{rec['plain']}, max_memory_allocated {rec['peak']} B, "
+                f"wall {rec['wall']:.4f} s")
+        log(f"[sharded] {SHARDED_WORLD} ranks gloo {name}: peaks sum "
+            f"{sum(r['peak'] for r in per)} B, transport gloo over cuda:0 "
+            f"(host copies of the merges)")
+        for rec in per:
+            if rec["result"] != world1[name]:
+                raise AssertionError(f"{SHARDED_WORLD} ranks {name}: "
+                                     f"{rec['result'][0]} != world 1 "
+                                     f"{world1[name][0]}")
+            if rec["plain"] or not rec["launches"]:
+                raise AssertionError(f"{SHARDED_WORLD} ranks {name}: "
+                                     f"launches {rec['launches']}, plain "
+                                     f"{rec['plain']}")
+    log(f"[sharded] {SHARDED_WORLD} ranks sharing the card: wall {wall:.1f} s "
+        "with the spawn")
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# The mining CLI and mining as a service
+
+
+def cli_checked(argv: list, out_dir: Path, label: str):
+    """``repro_torch.launch.mine.main(argv)`` in this process with
+    ``--trace`` and ``--metrics`` into ``out_dir``, both files checked by
+    the port's validator; returns the result."""
+    from repro_torch.launch import mine
+    from repro_torch.obs import metrics, trace, validate
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tpath, mpath = out_dir / f"{label}.trace.json", out_dir / f"{label}.json"
+    metrics.reset()
+    try:
+        r = mine.main([*argv, "--trace", str(tpath), "--metrics",
+                       str(mpath)])
+    finally:
+        trace.disable()
+    info = (validate.validate_trace(json.loads(tpath.read_text())),
+            validate.validate_metrics(json.loads(mpath.read_text())))
+    log(f"[cli] {label}: trace {info[0]}, metrics {info[1]}")
+    return r
+
+
+def cli_calls(spec: str, want: dict, out_dir: Path | None) -> None:
+    """The [cli] phase's calls: ``repro_torch.launch.mine.main`` with
+    ``--app tc`` and ``--app 4-cf`` (traced into ``out_dir`` and validated,
+    where it is given) and ``--fused-tc``, then ``serve --mine`` answering
+    ``tc,4-cf``; every count against ``want``."""
+    import torch
+    from repro_torch.launch import mine, serve
+    from repro_torch.obs import metrics
+
+    for name in ("tc", "4-cf"):
+        torch.cuda.empty_cache()
+        argv = ["--graph", spec, "--app", name]
+        r = (cli_checked(argv, out_dir, name) if out_dir
+             else mine.main(argv))
+        if r.count != want[name]:
+            raise AssertionError(f"cli {name}: {r.count} != scipy "
+                                 f"{want[name]}")
+    r = mine.main(["--graph", spec, "--fused-tc"])
+    if r.count != want["tc"]:
+        raise AssertionError(f"cli fused-tc: {r.count} != {want['tc']}")
+    metrics.reset()
+    results = serve.main(["--mine", "--graph", spec, "--queries", "tc,4-cf"])
+    for res in results:
+        if res["result"].count != want[res["query"]]:
+            raise AssertionError(f"serve {res['query']}: "
+                                 f"{res['result'].count} != "
+                                 f"{want[res['query']]}")
+
+
+def cli_phase(launches: dict) -> dict:
+    """The [cli] phase: ``python -m repro_torch.launch.mine`` in this
+    process on the card, ``--graph rmat:16`` (edge factor 8) with ``--app
+    tc`` and ``--app 4-cf`` traced, both exports validated, and
+    ``--fused-tc``; then ``serve --mine`` answering ``tc,4-cf``; every
+    count against scipy.  The calls run twice: first with every launch
+    held against its plain version, then with the launches counted (no
+    plain call).  Then a warm replay under tracing (sync off) shown free
+    of device syncs up to its final read, and a traced warm ``Miner.run``
+    that records no level span and no op span.  Returns the checks'
+    largest errors by kernel."""
+    import torch
+    from repro_torch.core import Miner, make_tc_app
+    from repro_torch.kernels.extend_fused import ops
+    from repro_torch.kernels.intersect import ops as intersect_ops
+    from repro_torch.kernels.intersect import ref as intersect_ref
+    from repro_torch.launch.mine import load_graph
+    from repro_torch.obs import trace
+
+    spec = "rmat:16"
+    graph = load_graph(spec)
+    t0 = time.perf_counter()
+    want = dict(zip(("tc", "4-cf"), scipy_counts(graph)))
+    log(f"[scipy] {spec} (edge factor 8): triangles {want['tc']}, "
+        f"4-cliques {want['4-cf']} ({time.perf_counter() - t0:.1f} s)")
+    names = (*REPLACES, *INTERSECT_REPLACES)
+    checks = KernelChecks(names=names)
+    with checks:
+        cli_calls(spec, want, None)
+    checks.report("cli")
+    if min(checks.launches.values()) < 1:
+        raise AssertionError("cli: a kernel was never checked")
+    ops.reset_counts()
+    intersect_ops.reset_counts()
+    with counting_k3_shapes():
+        cli_calls(spec, want, ROOT / "build" / "cli")
+    got = {k: n for k, n in ops.LAUNCHES.items() if n}
+    got["intersect_count"] = intersect_ops.LAUNCHES["intersect_count"]
+    plain = plain_calls() + intersect_ref.intersect_count_ref.calls
+    log(f"[cli] launches {got}, plain calls {plain}")
+    if plain or min(got.get(k, 0) for k in names) < 1:
+        raise AssertionError(f"cli: launches {got}, plain calls {plain}")
+    note_launches(launches, got, dict(ops.INSTANCE_LAUNCHES))
+
+    # a warm replay under tracing, sync off: no device sync before its
+    # final read; then a traced warm run records no level and no op span
+    torch.cuda.empty_cache()
+    miner = Miner(graph, make_tc_app())
+    miner.run()
+    tracer = trace.enable()
+    try:
+        replay_without_sync(miner, want["tc"], f"cli {spec} tc traced")
+        count = miner.run().count
+    finally:
+        trace.disable()
+    names = sorted({e["name"] for e in tracer.events})
+    log(f"[cli] traced warm run: {count}, events {names}")
+    if count != want["tc"] or "miner.run" not in names or not set(
+            names) <= {"miner.run", "executor.compile", "executor.replay"}:
+        raise AssertionError(f"cli traced warm run: {count}, events {names}")
+    del miner, graph
+    torch.cuda.empty_cache()
+    return checks.err
+
+
+# ---------------------------------------------------------------------------
 # LM serving: Qwen3-0.6B through serve_lm on the flash-attention kernel
 
 
@@ -2719,6 +3173,15 @@ def main() -> int:
     blocks_errs = blocks_phase(g12, expected12, tri, expected, launches)
     log(f"[blocks] phase {time.perf_counter() - t_phase:.1f} s")
 
+    # multi-device mining: world size 1 over nccl, then four gloo ranks
+    # sharing the card; then the mining CLI and serve --mine
+    t_phase = time.perf_counter()
+    sharded_errs = sharded_phase(expected, want15, launches)
+    log(f"[sharded] phase {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    cli_errs = cli_phase(launches)
+    log(f"[cli] phase {time.perf_counter() - t_phase:.1f} s")
+
     # LM serving: every flash-attention launch of sets A and B checked,
     # the kernel timed on set A's layer 0, the counted sets, then f32
     t_phase = time.perf_counter()
@@ -2751,7 +3214,8 @@ def main() -> int:
     launches[K3_CF_ROW] = K3_SHAPES[timing[K3_CF_ROW]["shape"]]
     log(f"[main] extend_candidates launches by (k, cand_cap): "
         f"{dict(K3_SHAPES)}")
-    for more in (mc_errs, mixed_errs, plan_errs, blocks_errs):
+    for more in (mc_errs, mixed_errs, plan_errs, blocks_errs, sharded_errs,
+                 cli_errs):
         for name, err in more.items():
             errs[name] = max(errs.get(name, 0), err)
     for name, replaces in {**REPLACES, **K3_ROWS, **EDGE_REPLACES,

@@ -1,7 +1,9 @@
 """Pangolin core on PyTorch: the extend-reduce-filter engine."""
 from repro_torch.core.api import (BranchSetSpec, CanonicalSpec, GraphCtx,
                                   MiningApp, PredicateSpec, make_ctx)
-from repro_torch.core.engine import Miner, MineResult, run_level_loop
+from repro_torch.core.engine import (Miner, MineResult, bounded_mine_edge,
+                                     bounded_mine_vertex, mine_sharded,
+                                     run_level_loop)
 from repro_torch.core.plan import (HostCapPolicy, MiningExecutor, MiningPlan,
                                    PlanCache, PlanCapPolicy, estimate_plan,
                                    plan_signature, profile_distance,

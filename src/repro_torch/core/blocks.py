@@ -32,6 +32,8 @@ import torch
 
 from repro_torch.core.plan import bucket_pow2
 from repro_torch.device import DeviceSpec, resolve_device
+from repro_torch.obs import metrics as _M
+from repro_torch.obs import trace as _T
 
 # Bytes per i32 column element; every embedding-list column is i32.
 _W = 4
@@ -170,7 +172,13 @@ class BlockQueue:
     read it.  On a CPU device the blocks are copied plainly.
 
     ``stage_s`` is the host time spent issuing the copies, ``mine_s`` the
-    host time the consumer held the blocks.
+    host time the consumer held the blocks.  Each staging runs in a
+    ``block.stage`` span; the times also go to the metrics, as the JAX
+    package's queue records them: the ``blocks.stage_ms`` and
+    ``blocks.mine_ms`` histograms, the ``blocks.stage_s`` and
+    ``blocks.mine_s`` counters, and the ``blocks.stage_overlap`` gauge,
+    ``mine_s / (stage_s + mine_s)`` (1.0 when staging cost no wall time
+    beside the mining).
     """
 
     def __init__(self, arrays: Iterable[np.ndarray],
@@ -194,6 +202,10 @@ class BlockQueue:
     def _stage(self, blk: EdgeBlock):
         """Issue block ``blk``'s copies: ``(columns, event)``, the event
         None on a CPU device."""
+        with _T.span("block.stage", cat="blocks", index=blk.index, n=blk.n):
+            return self._copy(blk)
+
+    def _copy(self, blk: EdgeBlock):
         if self._stream is None:
             out = []
             for c in self.columns:
@@ -227,23 +239,38 @@ class BlockQueue:
 
     def __iter__(self):
         """Yield ``(block, staged_columns)``, adding to ``stage_s`` and
-        ``mine_s`` (also when the consumer stops early)."""
-        t0 = time.perf_counter()
-        nxt = self._stage(self.blocks[0]) if self.blocks else None
-        self.stage_s += time.perf_counter() - t0
-        for i, blk in enumerate(self.blocks):
+        ``mine_s`` and recording the metrics (also when the consumer stops
+        early)."""
+        stage_s = mine_s = 0.0
+        try:
             t0 = time.perf_counter()
-            cur, nxt = nxt, (self._stage(self.blocks[i + 1])
-                             if i + 1 < len(self.blocks) else None)
-            cols = self._hand_over(cur)
-            del cur
-            self.stage_s += time.perf_counter() - t0
-            t0 = time.perf_counter()
-            try:
-                yield blk, cols
-            finally:
-                self.mine_s += time.perf_counter() - t0
-            del cols
+            nxt = self._stage(self.blocks[0]) if self.blocks else None
+            stage_s += time.perf_counter() - t0
+            for i, blk in enumerate(self.blocks):
+                t0 = time.perf_counter()
+                cur, nxt = nxt, (self._stage(self.blocks[i + 1])
+                                 if i + 1 < len(self.blocks) else None)
+                cols = self._hand_over(cur)
+                del cur
+                dt = time.perf_counter() - t0
+                stage_s += dt
+                _M.observe("blocks.stage_ms", dt * 1e3)
+                t0 = time.perf_counter()
+                try:
+                    yield blk, cols
+                finally:
+                    dt = time.perf_counter() - t0
+                    mine_s += dt
+                    _M.observe("blocks.mine_ms", dt * 1e3)
+                del cols
+        finally:
+            self.stage_s += stage_s
+            self.mine_s += mine_s
+            _M.inc("blocks.stage_s", stage_s)
+            _M.inc("blocks.mine_s", mine_s)
+            if stage_s + mine_s > 0:
+                _M.set_gauge("blocks.stage_overlap",
+                             mine_s / (stage_s + mine_s))
 
 
 def stack_blocks(arrays: Iterable[np.ndarray], blocks: Sequence[EdgeBlock],

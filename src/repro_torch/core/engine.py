@@ -22,10 +22,20 @@ by :class:`~repro_torch.core.blocks.BlockQueue`, with a checkpoint after
 each block and ``resume_from`` to restart after the last one.  Blocks are
 also the way past the 2^30 candidate slots one level may hold.
 
-Not ported yet: bounded and sharded mining (``bounded_mine_vertex``,
-``bounded_mine_edge``, ``mine_sharded``, the sharded FSM reduce), and the
-observability spans and metrics of ``repro.obs`` (the JAX package's
-``_note_live_bytes`` among them).
+Bounded mining (:func:`bounded_mine_vertex`, :func:`bounded_mine_edge`) is
+the same loop under a ``PlanCapPolicy`` with capacities given by the
+caller, reading nothing from the device; :func:`mine_sharded` runs it on
+every rank of a ``torch.distributed`` process group, one level-0 edge block
+a rank (the paper's edge blocking as the distribution unit): counts and
+pattern maps merge by a sum, and FSM keeps its support exact through the
+collective domain reduce (the paper's global support sync).
+
+The host inspection reports through :mod:`repro_torch.obs` under the JAX
+package's names: an ``op.<name>`` span around each phase op, a ``level``
+span and the ``mine.*`` gauges and counters per level, the ``miner.run``
+and ``block`` spans, and the live-bytes gauges of
+:func:`_note_live_bytes`.  Plan replays and the estimator's probe stay
+uninstrumented, so tracing adds no device read to a warm run.
 """
 from __future__ import annotations
 
@@ -37,24 +47,28 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import collectives as C
 from repro_torch.core.api import GraphCtx, MiningApp, make_ctx
 from repro_torch.core.blocks import (BlockQueue, auto_block_size,
                                      estimate_live_bytes, make_blocks,
-                                     scale_caps)
+                                     scale_caps, stack_blocks)
 from repro_torch.core.embedding_list import (EmbeddingLevel,
                                              init_level0_edge,
                                              init_level0_vertex, materialize,
                                              materialize_edges, total_bytes)
 from repro_torch.core.phases import BackendSpec, get_backend
 from repro_torch.core.phases.reference import INT_MAX
-from repro_torch.core.plan import (HostCapPolicy, MiningExecutor, PlanCache,
-                                   bucket_pow2, compatible_caps,
+from repro_torch.core.plan import (HostCapPolicy, MiningExecutor, MiningPlan,
+                                   PlanCache, PlanCapPolicy, bucket_pow2,
+                                   clip_caps, compatible_caps,
                                    estimate_plan, transfer_caps)
 from repro_torch.device import DeviceSpec, resolve_device
 from repro_torch.graph.csr import CSRGraph, Relabeling, degree_profile
 from repro_torch.graph.csr import pack_hit_rate as _pack_hit_rate
 from repro_torch.graph.csr import relabel as relabel_graph
 from repro_torch.graph.dag import orient_dag
+from repro_torch.obs import metrics as _M
+from repro_torch.obs import trace as _T
 
 
 @dataclasses.dataclass
@@ -125,11 +139,51 @@ class _PhaseOps:
         return self.backend.extend_edge(self.ctx, self.app, v0, vid, his,
                                         eid, n, cand_cap, out_cap)
 
-    def reduce_e(self, levels):
+    def reduce_e(self, levels, group=None):
+        """Domain reduce; with a process group, its collective variant."""
+        if group is not None:
+            return self.backend.reduce_domain_sharded(self.ctx, self.app,
+                                                      levels, group)
         return self.backend.reduce_domain(self.ctx, self.app, levels)
 
     def filter_e(self, levels, keep, *, out_cap):
         return self.backend.filter_levels(levels, keep, out_cap)
+
+
+def _obs_op(name: str, backend_name: str, device: torch.device, fn):
+    """``fn`` in an ``op.<name>`` span (cat ``phase``) while tracing is on.
+
+    The span measures the host time to queue the op's kernels; with
+    ``--trace-sync`` (:func:`repro_torch.obs.trace.sync_enabled`) it also
+    waits for the card, for exact attribution."""
+    def wrapped(*args, **kwargs):
+        if not _T.on:
+            return fn(*args, **kwargs)
+        with _T.span("op." + name, cat="phase", backend=backend_name):
+            out = fn(*args, **kwargs)
+            if _T.sync_enabled() and device.type == "cuda":
+                torch.cuda.synchronize(device)
+        return out
+    return wrapped
+
+
+class _TracedOps:
+    """The host inspection's view of a :class:`_PhaseOps`: each phase op in an
+    ``op.<name>`` span under the JAX package's op names.  Only the host
+    inspection runs through it; replays and the estimator's probe use the
+    bare ops."""
+
+    _SPANS = {"inspect": "inspect_vertex", "bound": "bound_vertex",
+              "extend": "extend_pruned", "reduce": "reduce_count",
+              "bound_e": "bound_edge", "inspect_e": "inspect_edge",
+              "extend_e": "extend_edge", "reduce_e": "reduce_domain",
+              "filter_e": "filter_levels"}
+
+    def __init__(self, ops: _PhaseOps):
+        self.ctx, self.app, self.backend = ops.ctx, ops.app, ops.backend
+        for attr, name in self._SPANS.items():
+            setattr(self, attr, _obs_op(name, ops.backend.name,
+                                        ops.ctx.device, getattr(ops, attr)))
 
 
 class _VertexPipeline:
@@ -226,11 +280,13 @@ class _EdgePipeline:
 
     The level-0 worklist defaults to the full undirected edge list of the
     graph context; explicit ``(src, dst, eid, n)`` tensors are the
-    executor's padded worklist.
+    executor's padded worklist or one rank's block, and ``group`` (a
+    process group) switches the domain reduce to its collective variant
+    for exact global MNI support.
     """
 
     def __init__(self, ops: _PhaseOps, src=None, dst=None, eid=None,
-                 n=None):
+                 n=None, group=None):
         self.ops = ops
         ctx = ops.ctx
         if src is None:
@@ -239,6 +295,7 @@ class _EdgePipeline:
                                device=ctx.device)
             n = ctx.n_uedges
         self.levels = init_level0_edge(src, dst, eid, n)
+        self.group = group
         self.codes = self.supports = None
         self._front = None        # frontier cache, one materialize per level
 
@@ -282,7 +339,8 @@ class _EdgePipeline:
 
     def _reduce_filter(self, policy):
         app = self.ops.app
-        codes, supports, pat, _ = self.ops.reduce_e(self.levels)
+        codes, supports, pat, _ = self.ops.reduce_e(self.levels,
+                                                    group=self.group)
         self.codes, self.supports = codes, supports
         if app.needs_filter:
             sup_of = supports[pat.clamp(0, app.max_patterns - 1).long()]
@@ -336,21 +394,63 @@ def run_level_loop(pipe, policy, collect_stats: bool = False,
                                 nbytes, time.perf_counter() - t0,
                                 nbytes + pipe.frontier_nbytes()))
 
+    # observability is the host policy's only: a replay (or the
+    # estimator's probe) must not read the device per level
+    host = not policy.traceable
     t0 = time.perf_counter()
     pre_level = pipe.pre_loop(policy)
     if collect_stats and pre_level is not None:
         record(pre_level, 0, t0)
     for level in pipe.level_range():
         t0 = time.perf_counter()
+        sp = (_T.span("level", level=level).__enter__()
+              if (host and _T.on) else None)
         cand_cap, out_cap = policy.extend_caps(pipe)
         n_cand, n_surv = pipe.extend(cand_cap, out_cap)
         policy.note_extend(n_cand, n_surv, cand_cap, out_cap)
         pipe.reduce_filter(level, policy)
+        if host:
+            # cap utilisation: true counts over the planned caps
+            nc, ns = int(n_cand), int(n_surv)
+            _M.set_gauge("mine.cap_utilization",
+                         ns / out_cap if out_cap else 0.0, level=level)
+            _M.set_gauge("mine.cand_cap_utilization",
+                         nc / cand_cap if cand_cap else 0.0, level=level)
+            _M.inc("mine.candidates", nc, level=level)
+            _M.inc("mine.survivors", ns, level=level)
+            if sp is not None:
+                sp.set(candidates=nc, survivors=ns, cand_cap=cand_cap,
+                       out_cap=out_cap,
+                       utilization=ns / out_cap if out_cap else 0.0)
+                sp.end()
         if collect_stats:
             record(level, int(n_cand), t0)
         if checkpoint_cb is not None:
             checkpoint_cb(level, pipe.levels, pipe.checkpoint_payload())
     return stats
+
+
+def _note_live_bytes(kind: str, plan, cap0: int, stats,
+                     block: Optional[int] = None) -> None:
+    """Record the run's measured peak live bytes beside the live-bytes
+    model's price of its plan (:func:`~repro_torch.core.blocks.
+    estimate_live_bytes`), as the gauges ``blocks.live_bytes.actual`` and
+    ``.predicted``; a measured peak above the price adds to
+    ``blocks.live_bytes.overrun`` and drops a ``live_bytes_overrun``
+    warning event.  Needs a host run's per-level stats."""
+    if plan is None or not stats:
+        return
+    actual = max((s.live_bytes for s in stats), default=0)
+    if actual <= 0:
+        return
+    predicted = estimate_live_bytes(kind, plan.caps, plan.filter_caps, cap0)
+    labels = {} if block is None else {"block": block}
+    _M.set_gauge("blocks.live_bytes.actual", actual, **labels)
+    _M.set_gauge("blocks.live_bytes.predicted", predicted, **labels)
+    if actual > predicted:
+        _M.inc("blocks.live_bytes.overrun")
+        _T.instant("live_bytes_overrun", cat="warning", actual=actual,
+                   predicted=predicted, **labels)
 
 
 class Miner:
@@ -408,6 +508,7 @@ class Miner:
         self.fuse_filter = fuse_filter
         self.ops = _PhaseOps(self.ctx, app, self.backend,
                              fuse_filter=fuse_filter)
+        self._host_ops = _TracedOps(self.ops)
         self._executors: dict[int, MiningExecutor] = {}
         self._digest: Optional[str] = None
         self._profile: Optional[tuple[tuple[float, ...], int]] = None
@@ -548,20 +649,24 @@ class Miner:
                    or checkpoint_cb is not None
                    else (plan_source, safety_factor, sample_size,
                          plan_seed, cache))
-        if self.app.kind == "edge":
-            return self._run_edge(collect_stats, checkpoint_cb, cache,
-                                  seeding)
-        src, dst = self.init_edges()
-        m = int(src.shape[0])
-        if block_bytes and not block_size:
-            block_size = self._auto_block_size(m, block_bytes, sample_size,
-                                               safety_factor, plan_seed)
-        if not block_size or block_size >= m:
-            return self._run_vertex_full(src, dst, m, collect_stats,
-                                         checkpoint_cb, cache, seeding)
-        return self._run_vertex_blocked(m, block_size, collect_stats,
-                                        checkpoint_cb, cache, seeding,
-                                        resume_from)
+        with _T.span("miner.run", app=self.app.name,
+                     backend=self.backend.name, kind=self.app.kind,
+                     plan_source=plan_source):
+            if self.app.kind == "edge":
+                return self._run_edge(collect_stats, checkpoint_cb, cache,
+                                      seeding)
+            src, dst = self.init_edges()
+            m = int(src.shape[0])
+            if block_bytes and not block_size:
+                block_size = self._auto_block_size(m, block_bytes,
+                                                   sample_size,
+                                                   safety_factor, plan_seed)
+            if not block_size or block_size >= m:
+                return self._run_vertex_full(src, dst, m, collect_stats,
+                                             checkpoint_cb, cache, seeding)
+            return self._run_vertex_blocked(m, block_size, collect_stats,
+                                            checkpoint_cb, cache, seeding,
+                                            resume_from)
 
     def _auto_block_size(self, m: int, budget_bytes: int,
                          sample_size: int = 256,
@@ -601,11 +706,15 @@ class Miner:
         ex.adopt_plan(caps, fcaps, source="estimated")
 
     def _host_run(self, pipe, executor: MiningExecutor, collect_stats: bool,
-                  checkpoint_cb: Optional[Callable] = None) -> MineResult:
+                  checkpoint_cb: Optional[Callable] = None,
+                  block: Optional[int] = None) -> MineResult:
         """Inspection-execution host run; records the executor's plan."""
         policy = HostCapPolicy()
         stats = run_level_loop(pipe, policy, collect_stats, checkpoint_cb)
         executor.adopt_plan(policy.caps, policy.filter_caps)
+        if collect_stats:
+            _note_live_bytes(self.app.kind, executor.plan, executor.cap0,
+                             stats, block=block)
         return pipe.result(stats)
 
     # -- vertex-induced paths ----------------------------------------------
@@ -616,8 +725,9 @@ class Miner:
         ex = self.executor(cap0, cache)
         self._seed_plan(ex, seeding)
         if collect_stats or checkpoint_cb is not None or not ex.has_plan:
-            return self._host_run(_VertexPipeline(self.ops, src, dst, m),
-                                  ex, collect_stats, checkpoint_cb)
+            return self._host_run(
+                _VertexPipeline(self._host_ops, src, dst, m), ex,
+                collect_stats, checkpoint_cb)
         pad = cap0 - m
         src = torch.nn.functional.pad(src, (0, pad))
         dst = torch.nn.functional.pad(dst, (0, pad))
@@ -662,15 +772,17 @@ class Miner:
         self.block_queue = BlockQueue(self.worklist_host(), blocks, cap0,
                                       self.device)
         for blk, (s, d) in self.block_queue:
-            if collect_stats or not ex.has_plan:
-                r = self._host_run(_VertexPipeline(self.ops, s, d, blk.n),
-                                   ex, collect_stats)
-                cnt, pm = r.count, r.p_map
-                stats.extend(r.stats)
-                del r                 # the block's levels
-            else:
-                cnt, pm_arr = ex.execute(s, d, blk.n)
-                pm = pm_arr if self._p_map_meaningful() else None
+            with _T.span("block", index=blk.index, n=blk.n):
+                if collect_stats or not ex.has_plan:
+                    r = self._host_run(
+                        _VertexPipeline(self._host_ops, s, d, blk.n), ex,
+                        collect_stats, block=blk.index)
+                    cnt, pm = r.count, r.p_map
+                    stats.extend(r.stats)
+                    del r             # the block's levels
+                else:
+                    cnt, pm_arr = ex.execute(s, d, blk.n)
+                    pm = pm_arr if self._p_map_meaningful() else None
             del s, d
             total += cnt
             if pm is not None:
@@ -705,8 +817,147 @@ class Miner:
         ex = self.executor(cap0, cache)
         self._seed_plan(ex, seeding)
         if collect_stats or checkpoint_cb is not None or not ex.has_plan:
-            return self._host_run(_EdgePipeline(self.ops), ex,
+            return self._host_run(_EdgePipeline(self._host_ops), ex,
                                   collect_stats, checkpoint_cb)
         codes, supports = ex.execute_edge(*self.edge_worklist(), m)
         return MineResult(count=_frequent(self.app, codes, supports),
                           codes=codes, supports=supports)
+
+
+# ---------------------------------------------------------------------------
+# Bounded mining and its distribution over a process group
+
+
+def bounded_mine_vertex(ctx: GraphCtx, app: MiningApp, src: torch.Tensor,
+                        dst: torch.Tensor, n_valid, caps,
+                        backend: BackendSpec = None):
+    """A whole vertex-induced mining run at the caller's capacities.
+
+    ``caps[i]`` is the ``(cand_cap, out_cap)`` of extension level ``i``,
+    clipped to 2^30 candidate slots (:func:`~repro_torch.core.plan.
+    clip_caps`).  Returns device tensors ``(count, p_map
+    int32[max_patterns], overflowed int32)``, reading nothing from the
+    device.  Capacities that overflow truncate the worklist and
+    ``overflowed`` says so (1; 2 when a level passes 2^30 slots, which no
+    capacity can cure); callers re-run with bigger caps (the bounded
+    contract).  This is the one level loop under a ``PlanCapPolicy``.
+    """
+    be = get_backend(backend if backend is not None else app.backend)
+    pipe = _VertexPipeline(_PhaseOps(ctx, app, be), src, dst,
+                           torch.as_tensor(n_valid, dtype=torch.int32,
+                                           device=ctx.device))
+    caps, _ = clip_caps(caps)
+    policy = PlanCapPolicy(MiningPlan(kind="vertex", caps=caps), ctx.device)
+    run_level_loop(pipe, policy)
+    return pipe.bounded_result(policy)
+
+
+def bounded_mine_edge(ctx: GraphCtx, app: MiningApp, src: torch.Tensor,
+                      dst: torch.Tensor, eid: torch.Tensor, n_valid, caps,
+                      filter_caps, backend: BackendSpec = None, group=None):
+    """A whole edge-induced (FSM) mining run at the caller's capacities.
+
+    ``(src, dst, eid)`` is the level-0 undirected-edge worklist (a block of
+    ``(ctx.usrc, ctx.udst, arange(n_uedges))``); ``filter_caps`` are the
+    support filter's output capacities, the pre-loop one first.  Returns
+    device tensors ``(codes int32[max_patterns], supports
+    int32[max_patterns], overflowed int32)`` as :func:`bounded_mine_vertex`
+    does.  With a process ``group`` the domain reduce is collective
+    (:func:`~repro_torch.core.phases.reference.reduce_domain_sharded`), so
+    every rank's support filter sees the global MNI supports.
+    """
+    be = get_backend(backend if backend is not None else app.backend)
+    n = torch.as_tensor(n_valid, dtype=torch.int32, device=ctx.device)
+    pipe = _EdgePipeline(_PhaseOps(ctx, app, be), src=src, dst=dst, eid=eid,
+                         n=n, group=group)
+    caps, filter_caps = clip_caps(caps, filter_caps)
+    policy = PlanCapPolicy(MiningPlan(kind="edge", caps=caps,
+                                      filter_caps=filter_caps), ctx.device)
+    run_level_loop(pipe, policy)
+    return pipe.bounded_result(policy)
+
+
+def mine_sharded(graph: CSRGraph, app: MiningApp, caps, group=None,
+                 backend: BackendSpec = None, filter_caps=None,
+                 relabel: bool | str = False, device: DeviceSpec = None):
+    """Distributed mining: one level-0 edge block per rank of ``group``.
+
+    SPMD: every rank of the ``torch.distributed`` group calls this with the
+    same arguments and its own ``device``.  Every rank builds the same
+    :class:`Miner` (the graph is replicated); rank ``r`` mines block ``r``
+    of ``make_blocks(m, ceil(m / world), count=world)``, zero-padded to
+    ``bucket_pow2(per_rank)`` (:func:`~repro_torch.core.blocks.
+    stack_blocks`), with :func:`bounded_mine_vertex` or, for FSM (which
+    needs ``filter_caps``), :func:`bounded_mine_edge` and its collective
+    domain reduce.  Counts and pattern maps merge by ``all_reduce(SUM)``
+    (in int64), the overflow flags by ``all_reduce(MAX)``
+    (:mod:`repro_torch.core.collectives`).  ``group=None`` mines the whole
+    worklist as one rank.
+
+    Returns the global values on every rank: ``(count, p_map int64,
+    overflowed)`` for vertex apps, ``(count, codes, supports, overflowed)``
+    for FSM.  There is no grow-and-retry: on ``overflowed`` the caller runs
+    again with bigger caps.  A level past 2^30 candidate slots raises
+    ``OverflowError`` on every rank (smaller blocks, so more ranks, are the
+    way past it).  The ``shard.mine`` and ``shard.merge`` spans time the
+    two halves (with ``--trace-sync``, each ends after the card is idle).
+    """
+    if app.kind == "edge" and filter_caps is None:
+        raise ValueError("sharded FSM needs filter_caps (support-filter "
+                         "output capacities per level)")
+    rank, world = C.world(group)
+    miner = Miner(graph, app, backend=backend, relabel=relabel,
+                  device=device)
+    ctx, dev = miner.ctx, miner.device
+    if app.kind == "edge":
+        m = ctx.n_uedges
+        arrays = (ctx.usrc.cpu().numpy(), ctx.udst.cpu().numpy(),
+                  np.arange(m, dtype=np.int32))
+    else:
+        arrays = miner.worklist_host()
+        m = int(arrays[0].shape[0])
+    per_rank = -(-m // world)
+    blk = make_blocks(m, per_rank, count=world)[rank]
+    cols = [t[0] for t in stack_blocks(arrays, [blk], bucket_pow2(per_rank),
+                                       dev)]
+
+    def synced(sp):
+        if _T.sync_enabled() and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        sp.set(rank=rank, world=world, n=blk.n)
+
+    if app.kind == "edge":
+        with _T.span("shard.mine", cat="shard") as sp:
+            codes, supports, ovf = bounded_mine_edge(
+                ctx, app, *cols, blk.n, caps, filter_caps,
+                backend=miner.backend, group=group)
+            synced(sp)
+        with _T.span("shard.merge", cat="shard") as sp:
+            ovf = C.all_reduce(ovf.reshape(1).to(torch.int32), "max", group)
+            synced(sp)
+        flat = torch.cat([codes.long(), supports.long(), ovf.long()]).tolist()
+        _raise_past_limit(flat[-1])
+        n_pat = app.max_patterns
+        codes = np.asarray(flat[:n_pat], dtype=np.int32)
+        supports = np.asarray(flat[n_pat:2 * n_pat], dtype=np.int32)
+        return (_frequent(app, codes, supports), codes, supports,
+                bool(flat[-1]))
+    with _T.span("shard.mine", cat="shard") as sp:
+        count, p_map, ovf = bounded_mine_vertex(ctx, app, *cols[:2], blk.n,
+                                                caps, backend=miner.backend)
+        synced(sp)
+    with _T.span("shard.merge", cat="shard") as sp:
+        total = C.all_reduce(torch.cat([count.reshape(1).long(),
+                                        p_map.long()]), "sum", group)
+        ovf = C.all_reduce(ovf.reshape(1).to(torch.int32), "max", group)
+        synced(sp)
+    flat = torch.cat([total, ovf.long()]).tolist()
+    _raise_past_limit(flat[-1])
+    return flat[0], np.asarray(flat[1:-1], dtype=np.int64), bool(flat[-1])
+
+
+def _raise_past_limit(overflowed: int) -> None:
+    if overflowed == 2:
+        raise OverflowError("a level of a sharded run needs more than 2^30 "
+                            "int32 candidate slots on one rank: mine on more "
+                            "ranks (smaller blocks)")

@@ -13,9 +13,13 @@ operations the loop composes.  Ported so far:
   extend_edge
   reduce_count             vertex reduce: classify + count per pattern
   reduce_domain            FSM reduce: canonical codes + MNI support
+  reduce_domain_sharded    the same over the ranks of a process group
+                           (global pattern table, union of the domains)
   filter_levels            support-based compaction of the last level
 
-The sharded FSM reduce waits for a later slice.
+The JAX package's ``phase.op_tracings`` counter, which counts jit
+tracings of each op, has no counterpart: PyTorch runs each op eagerly and
+traces nothing.
 """
 from __future__ import annotations
 
@@ -113,6 +117,14 @@ class PhaseBackend:
     def reduce_domain(self, ctx: GraphCtx, app: MiningApp,
                       levels: list[EmbeddingLevel]):
         """FSM reduce: ``(codes, supports, pat, pat_valid)``."""
+        raise NotImplementedError
+
+    def reduce_domain_sharded(self, ctx: GraphCtx, app: MiningApp,
+                              levels: list[EmbeddingLevel], group=None,
+                              packed: bool = True):
+        """FSM reduce across the ranks of a ``torch.distributed`` group:
+        exact global MNI support through collectives; ``group=None`` is
+        the local reduce."""
         raise NotImplementedError
 
     def filter_levels(self, levels: list[EmbeddingLevel],

@@ -22,7 +22,9 @@ of ``repro.core.phases.pallas``: ``cuda`` under the ``pallas-mp`` contract,
   runs ``extend_edge``: the ragged expansion, CSR and edge-uid gathers, the
   canonical-edge test and the app's per-vertex eager mask in one kernel.
 * The reduces are the plain backend's PyTorch, on the device with no host
-  read (JAX computes them outside Pallas too).
+  read (JAX computes them outside Pallas too), the sharded FSM reduce
+  (``reduce_domain_sharded``, collectives over a process group) among
+  them.
 
 The pruned kernels probe connectivity as the ``pallas`` backend does: from
 the full bit-packed adjacency when the graph has one (``bitmap``), from a

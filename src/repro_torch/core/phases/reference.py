@@ -7,7 +7,8 @@ output slot to its (parent, rank), gather the candidate from the CSR,
 evaluate ``toAdd`` before writing, and compact the survivors by a prefix
 sum.  REDUCE is the count reduce of vertex apps (a state histogram, the
 app's ``get_pattern`` or the canonical-code table) and the domain (MNI)
-support of FSM, and FILTER the support-based compaction of Alg. 2.  The module-level functions are the
+support of FSM, also across the ranks of a process group
+(:func:`reduce_domain_sharded`), and FILTER the support-based compaction of Alg. 2.  The module-level functions are the
 single source of truth; :class:`ReferenceBackend` packages them, and the
 CUDA backend overrides only the enumerations
 (:meth:`ReferenceBackend._vertex_candidates`,
@@ -507,16 +508,34 @@ def _domain_contributions(n_verts, ok, perm, pat, V: int, park: int
     return torch.where(ok[:, None] & real, bucket, park).clamp(max=park)
 
 
+def _membership(ctx: GraphCtx, vert_vid, n_verts, ok_rows, perms,
+                codes_all, canon, pat, V: int, park: int) -> torch.Tensor:
+    """The (pattern, domain, vertex) membership of the embeddings in
+    ``ok_rows``: ``uint8[park, n_vertices]``, row ``pat * V + domain``, 1
+    where the vertex lies in that domain.  Filled one permutation at a
+    time (an idempotent ``index_fill_``, so no sort of the ``V! * V``
+    contributions per embedding), on a table one row longer than ``park``
+    whose last row takes the parked contributions and is dropped."""
+    n = max(ctx.n_vertices, 1)
+    member = torch.zeros((park + 1) * n, dtype=torch.uint8,
+                         device=canon.device)
+    vid_c = vert_vid.clamp(0, n - 1).long()
+    for pi, perm in enumerate(perms):
+        ok = (codes_all[:, pi] == canon) & ok_rows
+        bucket = _domain_contributions(n_verts, ok, perm, pat, V, park)
+        member.index_fill_(0, (bucket * n + vid_c).reshape(-1), 1)
+    return member.view(park + 1, n)[:park]
+
+
 def reduce_domain(ctx: GraphCtx, app: MiningApp,
                   levels: list[EmbeddingLevel]):
     """FSM reduce: canonical codes + MNI (domain) support.
 
     Returns (codes int32[P], support int32[P], pat int32[cap], pat_valid
     bool[P]) with P = app.max_patterns, equal to JAX's ``reduce_domain``.
-    Distinct (pattern, domain, vertex) triples are counted on a dense
-    membership table, ``uint8[P * V + 1, n_vertices]`` whose last row takes
-    the parked contributions, as JAX's ``reduce_domain_sharded(packed=
-    False)`` does, one permutation at a time, instead of sorting all
+    Distinct (pattern, domain, vertex) triples are counted on the dense
+    membership table (:func:`_membership`), as JAX's
+    ``reduce_domain_sharded(packed=False)`` does, instead of sorting all
     ``V! * V`` contributions per embedding.
     """
     vert_vid, n_verts, valid, perms, codes_all, canon = \
@@ -524,20 +543,111 @@ def reduce_domain(ctx: GraphCtx, app: MiningApp,
     cap, V = vert_vid.shape
     n_eff = ctx.n_labels + 1
     Pn = app.max_patterns
-    n = max(ctx.n_vertices, 1)
     uniq, pat = P.unique_fixed(canon, Pn)
     pat_valid = uniq != INT_MAX
-    park = Pn * V
-    member = torch.zeros((park + 1) * n, dtype=torch.uint8,
-                         device=canon.device)
-    vid_c = vert_vid.clamp(0, n - 1).long()
-    for pi, perm in enumerate(perms):
-        ok = (codes_all[:, pi] == canon) & valid
-        bucket = _domain_contributions(n_verts, ok, perm, pat, V, park)
-        member.index_fill_(0, (bucket * n + vid_c).reshape(-1), 1)
-    distinct = member.view(park + 1, n)[:park].sum(dim=1, dtype=torch.int32)
+    member = _membership(ctx, vert_vid, n_verts, valid, perms, codes_all,
+                         canon, pat, V, Pn * V)
+    distinct = member.sum(dim=1, dtype=torch.int32)
     return _domain_support(app, uniq, pat_valid, distinct.view(Pn, V), pat,
                            valid, V, n_eff)
+
+
+def _packed_membership(ctx: GraphCtx, vert_vid, n_verts, ok_rows, perms,
+                       codes_all, canon, pat, V: int,
+                       park: int) -> torch.Tensor:
+    """:func:`_membership` packed into 32-bit words, built without the
+    dense table: ``int32[park, ceil(n_vertices / 32)]``, vertex ``v`` bit
+    ``v & 31`` of word ``v >> 5`` (the JAX package's ``uint32`` layout read
+    as ``int32``, bit 31 the sign bit).  One permutation at a time, the
+    live (row, vertex) keys are deduplicated, those whose bit is already
+    set are dropped, and each remaining bit is added in once: a once-only
+    sum of distinct powers of two is their bitwise OR, and with disjoint
+    bits the int32 sum never overflows.  Peak memory is the words and one
+    permutation's keys."""
+    n = max(ctx.n_vertices, 1)
+    n_words = -(-n // 32)
+    words = torch.zeros(park * n_words, dtype=torch.int32,
+                        device=canon.device)
+    vid_c = vert_vid.clamp(0, n - 1).long()
+    for pi, perm in enumerate(perms):
+        ok = (codes_all[:, pi] == canon) & ok_rows
+        bucket = _domain_contributions(n_verts, ok, perm, pat, V, park)
+        live = bucket < park
+        keys = torch.unique(bucket[live] * n + vid_c[live])
+        slot = keys // n * n_words + (keys % n >> 5)
+        bit = (keys % n & 31).to(torch.int32)
+        new = (words[slot] >> bit) & 1 == 0
+        bit = bit[new]
+        words.index_add_(0, slot[new], torch.ones_like(bit) << bit)
+    return words.view(park, n_words)
+
+
+def popcount32(words: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int32 word, int64 (torch has no population count:
+    the SWAR sum on the word's unsigned value, held in int64)."""
+    x = words.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def reduce_domain_sharded(ctx: GraphCtx, app: MiningApp,
+                          levels: list[EmbeddingLevel], group=None,
+                          packed: bool = True):
+    """FSM reduce over embeddings spread across the ranks of ``group``
+    (exact MNI; JAX's ``reduce_domain_sharded``, with a process group for
+    its mesh axes).
+
+    Domain supports count distinct vertices, so per-rank supports cannot
+    be summed.  Instead: every rank canonicalises its local embeddings;
+    the local ``unique_fixed`` tables are all-gathered and the global
+    table is ``unique_fixed`` of the gathered codes (the same on every
+    rank); each rank maps its codes to global slots by ``searchsorted``
+    with an exact-hit mask, so a code past a truncated table contributes
+    nowhere; the (pattern, domain, vertex) memberships are merged as a set
+    union, and the distinct counts are read off the merged table.  Every
+    rank then filters with the same global supports, so the per-level
+    support filter stays exact (the paper's global support sync).
+
+    ``packed=True`` builds the membership as 32-bit words straight from
+    the contributions (:func:`_packed_membership`, 8x fewer bytes than the
+    dense ``uint8`` table, on each rank and on the wire) and merges them by
+    all-gather and a local bitwise OR (a sum would carry between bits, and
+    NCCL has no bitwise reduce); the distinct counts are the words'
+    population counts (:func:`popcount32`).  ``packed=False`` builds the
+    dense table (:func:`_membership`, as :func:`reduce_domain` does) and
+    merges it by ``all_reduce(MAX)``, the oracle path.
+    ``group=None`` is the collective-free local reduce, equal to
+    :func:`reduce_domain` (JAX's ``axis_names=()``).  The collectives are
+    :mod:`repro_torch.core.collectives`'.
+    """
+    from repro_torch.core import collectives as C
+
+    vert_vid, n_verts, valid, perms, codes_all, canon = \
+        _canonical_edge_codes(ctx, app, levels)
+    cap, V = vert_vid.shape
+    n_eff = ctx.n_labels + 1
+    Pn = app.max_patterns
+    local_uniq, _ = P.unique_fixed(canon, Pn)
+    uniq, _ = P.unique_fixed(torch.cat(C.all_gather(local_uniq, group)), Pn)
+    pat_valid = uniq != INT_MAX
+    pat = torch.searchsorted(uniq, canon).clamp(max=Pn - 1)
+    hit = uniq[pat] == canon
+    park = Pn * V
+    args = (ctx, vert_vid, n_verts, valid & hit, perms, codes_all, canon,
+            pat, V, park)
+    if packed:
+        words = C.all_gather(_packed_membership(*args), group)
+        merged = words[0]
+        for w in words[1:]:
+            merged = merged | w              # set union
+        distinct = popcount32(merged).sum(dim=1).to(torch.int32)
+    else:
+        merged = C.all_reduce(_membership(*args), "max", group)
+        distinct = merged.sum(dim=1, dtype=torch.int32)
+    return _domain_support(app, uniq, pat_valid, distinct.view(Pn, V),
+                           pat.to(torch.int32), valid, V, n_eff)
 
 
 def _domain_support(app, uniq, pat_valid, distinct, pat, valid, V, n_eff):
@@ -654,6 +764,10 @@ class ReferenceBackend(PhaseBackend):
 
     def reduce_domain(self, ctx, app, levels):
         return reduce_domain(ctx, app, levels)
+
+    def reduce_domain_sharded(self, ctx, app, levels, group=None,
+                              packed=True):
+        return reduce_domain_sharded(ctx, app, levels, group, packed)
 
     def filter_levels(self, levels, keep, out_cap):
         return filter_levels(levels, keep, out_cap)

@@ -24,7 +24,15 @@
   backend and scale the true counts it reports.
 
 PyTorch runs eagerly, so there is no compiled program per plan (and no
-count of compiles).
+count of compiles).  The JAX package's trace and metric names are kept
+all the same (:mod:`repro_torch.obs`): a ``plan.<event>`` instant and
+counter for each plan adopted, taken from a cache or grown; the
+``plan.estimate`` span; and an ``executor.compile`` span (cat
+``executor``) for an executor's first run of a capacity schedule, where
+the JAX package compiles, then ``executor.replay`` spans, with the
+``executor.compiles`` / ``executor.replays`` counters and the seconds in
+``executor.compile_s`` / ``executor.replay_s``.  Here the first run of a
+schedule only runs, so the two differ by nothing but their place.
 
 One deliberate difference from the JAX package: candidate slots are int32
 here, so an executor clips every capacity it adopts to 2^30
@@ -41,12 +49,15 @@ import hashlib
 import json
 import os
 import tempfile
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.phases.reference import MAX_CAND_CAP
+from repro_torch.obs import metrics as _M
+from repro_torch.obs import trace as _T
 
 
 def bucket_pow2(n: int, minimum: int = 128) -> int:
@@ -505,8 +516,15 @@ def estimate_plan(miner, cap0: int, sample_size: int = 256,
     FSM's support filter runs on the sample with ``min_support`` rescaled
     by the sampling fraction.  The result is not clipped to 2^30 (an
     executor clips what it adopts).  Exactness is not this function's
-    contract: the executor's overflow backstop is.
+    contract: the executor's overflow backstop is.  It runs in a
+    ``plan.estimate`` span.
     """
+    with _T.span("plan.estimate", cat="plan", sample_size=sample_size):
+        return _estimate_plan(miner, cap0, sample_size, safety_factor, seed)
+
+
+def _estimate_plan(miner, cap0, sample_size, safety_factor, seed
+                   ) -> tuple[tuple[tuple[int, int], ...], tuple[int, ...]]:
     from repro_torch.core import engine as E
     from repro_torch.graph.sampler import (sample_worklist,
                                            sample_worklist_stratified)
@@ -649,9 +667,13 @@ class MiningExecutor:
         self.app_key = plan_app_key(miner.app, miner.backend.name,
                                     miner.fuse_filter, compaction)
         self.transfer_key = plan_transfer_key(miner.app, miner.fuse_filter)
-        if plan is None and cache is not None:
+        from_cache = plan is None and cache is not None
+        if from_cache:
             plan = cache.get(self.signature)
         self._plan = _clipped(plan)
+        if from_cache and plan is not None:
+            self._note_plan_event("cache_hit")
+        self._run_keys: set = set()       # capacity schedules run so far
         self.n_executions = 0
         self.n_replans = 0
 
@@ -663,6 +685,17 @@ class MiningExecutor:
     def has_plan(self) -> bool:
         return self._plan is not None
 
+    def _note_plan_event(self, event: str, **extra) -> None:
+        """Plan provenance: a ``plan.<event>`` counter and trace instant."""
+        _M.inc("plan." + event, kind=self.kind)
+        if _T.on:
+            args = {"signature": self.signature, "cap0": self.cap0}
+            if self._plan is not None:
+                args["caps"] = str(self._plan.caps)
+                args["source"] = self._plan.source
+            args.update(extra)
+            _T.instant("plan." + event, cat="plan", **args)
+
     def attach_cache(self, cache: Optional[PlanCache]) -> None:
         """Use ``cache`` from now on: take its plan of this signature when
         the executor has none, else write the executor's plan to it."""
@@ -672,6 +705,8 @@ class MiningExecutor:
         self.cache = cache
         if self._plan is None:
             self._plan = _clipped(cache.get(self.signature))
+            if self._plan is not None:
+                self._note_plan_event("cache_hit")
         elif self._plan.signature == self.signature:
             cache.put(self._plan)
 
@@ -692,6 +727,7 @@ class MiningExecutor:
                                 source=source, app_key=self.app_key,
                                 profile=profile, n_edges=n_edges,
                                 transfer_key=self.transfer_key)
+        self._note_plan_event(source)
         if self.cache is not None:
             self.cache.put(self._plan)
 
@@ -705,6 +741,7 @@ class MiningExecutor:
         self.n_replans += 1
         self._plan = dataclasses.replace(grown, caps=caps,
                                          filter_caps=filter_caps)
+        self._note_plan_event("grown", replans=self.n_replans)
         if self.cache is not None:
             self.cache.put(self._plan)
 
@@ -723,12 +760,24 @@ class MiningExecutor:
     def _run_with_retry(self, *args) -> list[int]:
         """Replay the plan, growing it on overflow.  Each attempt reads the
         device once, after the last level: the results and the overflow
-        flag, flattened into one int64 vector, in one transfer."""
+        flag, flattened into one int64 vector, in one transfer (which also
+        makes the attempt's ``executor.*`` span cover the card's work)."""
         for attempt in range(self.max_retries + 1):
-            outs = self._run_once(*args)
-            self.n_executions += 1
-            flat = torch.cat([o.to(torch.int64).reshape(-1)
-                              for o in outs]).tolist()
+            key = (self._plan.caps, self._plan.filter_caps)
+            fresh = key not in self._run_keys
+            self._run_keys.add(key)
+            what = "executor.compile" if fresh else "executor.replay"
+            t0 = time.perf_counter()
+            with _T.span(what, cat="executor", kind=self.kind,
+                         attempt=attempt) as sp:
+                outs = self._run_once(*args)
+                self.n_executions += 1
+                flat = torch.cat([o.to(torch.int64).reshape(-1)
+                                  for o in outs]).tolist()
+                sp.set(overflow=bool(flat[-1]))
+            _M.inc(what + "_s", time.perf_counter() - t0, kind=self.kind)
+            _M.inc("executor.compiles" if fresh else "executor.replays",
+                   kind=self.kind)
             if not flat[-1]:
                 return flat[:-1]
             if flat[-1] == 2:

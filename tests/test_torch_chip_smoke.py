@@ -688,3 +688,81 @@ def test_e2e_samples_pass_the_run_options():
     out = smoke.e2e_samples(g, "tc", make_tc_app(), expected["tc"], "cuda",
                             n=2, run_kw={"plan_source": "estimate"})
     assert set(out) == {"cold", "warm"}
+
+
+def _smoke_by_name(monkeypatch):
+    """The smoke script imported by its module name, so that spawned ranks
+    find its rank function."""
+    import importlib
+    monkeypatch.syspath_prepend(str(ROOT))
+    return importlib.import_module("chip_smoke")
+
+
+def test_sharded_checks_and_shared_ranks_hold(monkeypatch, tmp_path):
+    """The [sharded] phase's pieces at a small size on the CPU: a world of
+    one over gloo, every launch checked, each answer Miner.run's and
+    scipy's; then four gloo ranks from the single-process caps scaled to
+    their block, each rank's first round checked launch by launch, each
+    rank's answer the world of one's."""
+    smoke = _smoke_by_name(monkeypatch)
+    from repro_torch.core import make_fsm_app
+    from repro_torch.core.blocks import scale_caps
+    from repro_torch.core.plan import bucket_pow2
+    from repro_torch.launch import mesh
+    g, expected = _graph_and_counts(smoke)
+    gl, ms = rmat(7, 8, seed=0, labels=3, device="cpu"), 2
+    fsm = make_fsm_app(3, ms, max_patterns=64)
+    world1, plans = {}, {}
+    group, _ = mesh.init_group(str(tmp_path / "store"), 0, 1, "gloo", "cpu")
+    try:
+        for name, graph, app, backend in (
+                ("tc", g, make_tc_app(), "cuda"),
+                ("4-cf", g, make_cf_app(4), "cuda-1p"),
+                ("3-fsm", gl, fsm, "cuda")):
+            want, plans[name], _ = smoke.single_card_plan(graph, app,
+                                                          backend)
+            caps, fcaps, _ = plans[name]
+            edge = app.kind == "edge"
+            names = (tuple(smoke.EDGE_REPLACES) if edge
+                     else smoke.PRUNED_PATH[backend])
+            result, checks = smoke.sharded_checked(
+                group, graph, app, caps, fcaps if edge else None, backend,
+                names, "cpu", chunk=512)
+            assert set(checks.err.values()) == {0}
+            world1[name] = smoke.sharded_result(result)
+            assert world1[name] == want
+            if not edge:
+                assert want[0] == expected[name]
+    finally:
+        mesh.close_group()
+    assert world1["3-fsm"][0] == len(smoke.scipy_fsm(gl, ms)[0]) > 0
+    jobs = []
+    for name, gargs, aargs in (("tc", (7, 8, 0, None), ("tc",)),
+                               ("3-fsm", (7, 8, 0, 3), ("3-fsm", ms))):
+        caps, fcaps, m = plans[name]
+        ratio = 2 * bucket_pow2(-(-m // 4)) / bucket_pow2(m)
+        caps, fcaps = scale_caps(caps, fcaps, ratio)
+        jobs.append((name, gargs, aargs, caps,
+                     fcaps if name == "3-fsm" else None, "cuda"))
+    ranks = mesh.spawn(smoke.shared_card_rank, 4, backend="gloo",
+                       device="cpu", args=(jobs,))
+    assert len(ranks) == 4
+    for out in ranks:
+        for name in ("tc", "3-fsm"):
+            assert out[name]["result"] == world1[name]
+            assert out[name]["rounds"] >= 1
+            assert min(out[name]["checked"].values()) >= 1
+            assert set(out[name]["err"].values()) == {0}
+
+
+def test_cli_checked_validates_both_exports(tmp_path):
+    smoke = _smoke()
+    g, expected = _graph_and_counts(smoke)
+    r = smoke.cli_checked(["--graph", "rmat:7", "--app", "tc", "--device",
+                           "cpu"], tmp_path, "tc")
+    from repro_torch.launch.mine import load_graph
+    assert r.count == smoke.scipy_counts(load_graph("rmat:7",
+                                                    device="cpu"))[0]
+    assert (tmp_path / "tc.trace.json").exists()
+    from repro_torch.obs import trace
+    assert not trace.on

@@ -47,14 +47,21 @@ def test_port_imports_and_mines_with_jax_blocked():
         "import repro_torch.kernels.extend_fused.ops\n"
         "import repro_torch.kernels.flash_attention.ops\n"
         "import repro_torch.kernels.segsum.ops\n"
-        "import repro_torch.launch.serve\n"
-        "from repro_torch.core import Miner, make_cf_app\n"
+        "import repro_torch.launch.serve, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.mine, repro_torch.obs.validate\n"
+        "import repro_torch.core.collectives\n"
+        "from repro_torch.core import Miner, make_cf_app, mine_sharded\n"
         "from repro_torch.graph.generators import clique\n"
         "m = Miner(clique(6, device='cpu'), make_cf_app(4), device='cpu')\n"
         "assert m.run().count == 15 and m.run().count == 15\n"
         "from repro_torch.core import make_mc_app\n"
         "m = Miner(clique(5, device='cpu'), make_mc_app(4), device='cpu')\n"
         "assert list(m.run().p_map) == [0, 0, 0, 0, 0, 5]\n"
+        "assert mine_sharded(clique(6, device='cpu'), make_cf_app(4),\n"
+        "                    ((256, 128), (256, 128)), device='cpu')[0] == 15\n"
+        "r = repro_torch.launch.mine.main(['--graph', 'clique:6', '--app',\n"
+        "                                  '4-cf', '--device', 'cpu'])\n"
+        "assert r.count == 15\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
         "               for k in sys.modules if sys.modules[k] is not None)\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}

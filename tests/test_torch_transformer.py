@@ -212,8 +212,10 @@ def test_unported_parts_raise():
         get_arch("no-such-arch")
     with pytest.raises(NotImplementedError, match="MoE"):
         dataclasses.replace(port_qwen.SMOKE, moe=object())
-    with pytest.raises(NotImplementedError, match="--mine"):
-        serve.main(["--mine"])
+    # serve --mine is ported: it answers where it used to raise
+    (res,) = serve.main(["--mine", "--graph", "clique:5", "--queries", "tc",
+                         "--device", "cpu"])
+    assert res["result"].count == 10
     with pytest.raises(ValueError, match="attn_impl"):
         dataclasses.replace(port_qwen.SMOKE, attn_impl="sdpa")
     assert port_qwen.CONFIG.param_count() == jax_qwen.CONFIG.param_count()
