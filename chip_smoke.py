@@ -5,7 +5,10 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure raises, and the script exits non-zero):
 
-1. device   — the card's name and power limit.
+1. device   — the card's name and power limit; then ``[lint]``, the
+              port's contract linter (``repro_torch.analysis``) over the
+              ``repro_torch`` this script imports, its ``.py`` and ``.cu``
+              sources: any finding fails the run.
 2. build    — compile every CUDA source of the port with nvcc (all at
               once) and print each ``-Xptxas -v`` report, then the
               registers, spills, stack and shared memory of each of the 45
@@ -85,8 +88,10 @@ Phases (any failure raises, and the script exits non-zero):
               checked the same way (the plain versions over 2^25-slot
               pieces), then counted, cold and warm on both backends, each
               count and p_map against a scipy census computed here, no
-              plain call, and the two backends' levels (vid, idx, state)
-              equal.  Then ``extend_count``, ``extend_scatter`` and
+              plain call, the warm replay once more free of device syncs
+              up to its final read (count and p_map again), and the two
+              backends' levels (vid, idx, state) equal.  Then
+              ``extend_count``, ``extend_scatter`` and
               ``extend_pruned_1p`` timed in each spec kind's instantiation
               on a main-path level (the branch set + state on 4-MC's level
               3, the conjunction on the diamond's, the canonical test on
@@ -121,7 +126,8 @@ Phases (any failure raises, and the script exits non-zero):
               on ``rmat(15, 8, seed=0, labels=4)`` at 2500 on both
               backends, counts and supports against scipy, the plans'
               source, replans and caps (clipped to 2^30 slots), no plain
-              call and no K3 launch, each with its ``[e2e]`` line.  Then
+              call and no K3 launch, each with its ``[e2e]`` line, each
+              estimated vertex replay once more free of device syncs.  Then
               RMAT-15 4-CF's inspected plan recorded in a plan cache under
               the ignored ``build/plan_cache/`` and RMAT-16 4-CF mined from
               it with ``plan_source="cache"`` (source ``transfer``).
@@ -151,7 +157,10 @@ Phases (any failure raises, and the script exits non-zero):
               plain call), each answer against ``Miner.run``'s and
               scipy's, with the wall time, the ``shard.mine`` and
               ``shard.merge`` spans (the card synchronised at their ends)
-              and the warm ``Miner.run`` time beside it.  Then four
+              and the warm ``Miner.run`` time beside it; then 3-FSM's
+              packed reduce (``reduce_domain_sharded(packed=True)`` over
+              the nccl group) free of device syncs, equal to the dense
+              path's.  Then four
               ``gloo`` ranks sharing the card (NCCL refuses two ranks on
               one card), spawned after the build: RMAT-16 TC and the
               RMAT-15 3-FSM from the single-card caps scaled to their
@@ -182,7 +191,10 @@ Phases (any failure raises, and the script exits non-zero):
               and of one decode step; then the model in f32 (batch 1,
               prompt 512, TF32 off, the FMA variant): prefill on the
               kernel against prefill on the plain attention (last-token
-              logits within 1e-3) and the same 8 greedy tokens.
+              logits within 1e-3) and the same 8 greedy tokens, and the FMA
+              variant timed on that prefill's layer-0 arguments beside the
+              plain version and ``scaled_dot_product_attention``, its bound
+              on the f32 FMA pipes.
 15. segsum  — the segment sum ``sorted_segment_sum`` at ogb_products'
               scale (``configs/shapes.py``: 61,859,140 rows of 100 f32
               values into 2,449,029 sorted segments, 24.7 GB): sorted,
@@ -212,6 +224,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core rate
+F32_FLOPS_PER_S = 67e12         # H100 SXM float32 rate outside the tensor
+                                # cores (the FMA pipes)
 TPU_KERNEL = "src/repro/kernels/extend_fused/extend.py"
 REPLACES = {"extend_candidates": f"{TPU_KERNEL}:65",
             "extend_count": f"{TPU_KERNEL}:505",
@@ -968,9 +982,10 @@ def main_path(graph, expected: dict, backend: str = "cuda") -> dict:
     return launches
 
 
-def replay_without_sync(miner, want: int, label: str) -> None:
+def replay_without_sync(miner, want: int, label: str, p_map=None) -> None:
     """The warm vertex replay up to its final read, with every device sync
-    an error; its count must be ``want``."""
+    an error; its count must be ``want`` (and its pattern map ``p_map``,
+    where given)."""
     import torch
     import torch.nn.functional as F
 
@@ -980,10 +995,12 @@ def replay_without_sync(miner, want: int, label: str) -> None:
     pad = (0, ex.cap0 - m)
     src, dst = F.pad(src, pad), F.pad(dst, pad)
     n = torch.tensor(m, dtype=torch.int32, device="cuda")
-    count, _, ovf = sync_free(lambda: ex._run_once(src, dst, n))
-    if (int(count), bool(ovf)) != (want, False):
+    count, got_map, ovf = sync_free(lambda: ex._run_once(src, dst, n))
+    if (int(count), bool(ovf)) != (want, False) or (
+            p_map is not None and got_map.tolist() != list(p_map)):
         raise AssertionError(f"{label}: the sync-checked replay counted "
-                             f"{int(count)} (overflow {bool(ovf)})")
+                             f"{int(count)} {got_map.tolist()} (overflow "
+                             f"{bool(ovf)})")
     log(f"[main] {label}: the warm replay made no device sync before its "
         "final read")
 
@@ -1430,9 +1447,10 @@ def mc_main(graph, name: str, app, count: int, p_map, backend: str,
     (with Miner options ``miner_kw``), the launches counted: every kernel
     of the path (by default the backend's) launches, no other kernel and
     no plain version runs, and with ``mode`` every pruned launch probes in
-    that mode.  Returns the launches per kernel, per template
-    instantiation (``ops.INSTANCE_LAUNCHES``), and the cold run's levels
-    when ``keep_levels`` (else the Miner's plans, ``plans_of``)."""
+    that mode; then the warm replay once more up to its final read, with
+    every device sync an error.  Returns the launches per kernel, per
+    template instantiation (``ops.INSTANCE_LAUNCHES``), and the cold run's
+    levels when ``keep_levels`` (else the Miner's plans, ``plans_of``)."""
     import torch
     from repro_torch.core import Miner
     from repro_torch.kernels.extend_fused import ops
@@ -1473,6 +1491,7 @@ def mc_main(graph, name: str, app, count: int, p_map, backend: str,
             n for k, n in launches.items() if k not in path):
         raise AssertionError(f"{name} {backend}: launches {launches}, plain "
                              f"calls {plain}")
+    replay_without_sync(miner, count, f"{name} {backend}", p_map)
     levels = results["cold"].levels if keep_levels else plans_of(miner)
     del miner, results
     return launches, instances, levels
@@ -2358,6 +2377,31 @@ def sharded_counted(group, graph, app, caps, filter_caps, backend: str,
             spans["shard.merge"])
 
 
+def packed_reduce_sync_free(group, graph, app, backend: str) -> None:
+    """The FSM reduce of ``mine_sharded`` on ``group`` (one rank), packed,
+    on the last level of a cold ``Miner.run``: the whole
+    ``reduce_domain_sharded(packed=True)`` call, its collectives included,
+    with every device sync an error.  Its codes and supports must equal
+    the dense path's."""
+    import torch
+    from repro_torch.core import Miner
+    from repro_torch.core.phases import reference as R
+
+    miner = Miner(graph, app, backend=backend, device=graph.device)
+    levels = miner.run().levels
+    ctx, app = miner.ctx, miner.ops.app
+    want = R.reduce_domain_sharded(ctx, app, levels, group, packed=False)
+    got = sync_free(lambda: R.reduce_domain_sharded(ctx, app, levels, group,
+                                                    packed=True))
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("the packed FSM reduce differs from the dense")
+    log(f"[sharded] world 1 3-fsm packed reduce: no device sync in the whole "
+        f"reduce_domain_sharded(packed=True) call, its collectives included;"
+        f" codes and supports equal to the dense path's on "
+        f"{int(levels[-1].n)} embeddings")
+    del miner, levels, got, want
+
+
 def shared_card_rank(rank: int, group, device, jobs) -> list:
     """One rank of the four that share the card: each job ``(label, graph
     args, app args, caps, filter caps, backend)`` mined once with
@@ -2506,6 +2550,8 @@ def sharded_phase(expected: dict, want15: list, launches: dict) -> dict:
                 world1[name] = got_r
                 note_launches(launches, got, instances)
                 del result
+                if edge:
+                    packed_reduce_sync_free(group, graph, app, backend)
         finally:
             mesh.close_group()
     del g16, g15l
@@ -2728,11 +2774,13 @@ FLASH_VARIANTS = {"bfloat16": "tensor_core", "float32": "fma"}
 def time_flash(a, kw, plain: bool = True) -> dict:
     """CUDA-event times of the kernel, its plain version (unless ``plain``
     is False) and ``scaled_dot_product_attention`` on one launch's
-    arguments, the kernel's output held against the plain version's, the
-    variant the timed launches ran, and the bound: the larger of the flops
-    at the bf16 tensor-core rate and the bytes at the memory rate.  The
-    flops are 4 d per (query, key) pair: the tensor-core variant's extra
-    product for the split P (P_lo V) is not counted as work."""
+    arguments, the kernel's output held against the plain version's (at
+    the checks' tolerance), the variant the timed launches ran, and the
+    bound: the larger of the flops at the rate of the variant's pipes
+    (bf16 on the tensor cores, f32 on the FMA pipes) and the bytes at the
+    memory rate.  The flops are 4 d per (query, key) pair: the tensor-core
+    variant's extra product for the split P (P_lo V) is not counted as
+    work."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
@@ -2757,15 +2805,17 @@ def time_flash(a, kw, plain: bool = True) -> dict:
                                  reps=2)
         err = float((got.float() - want.float()).abs().max())
         lib_err = float((lib.float() - want.float()).abs().max())
-        torch.testing.assert_close(got, want)
+        torch.testing.assert_close(got, want, **(
+            {} if q.dtype == torch.bfloat16 else dict(atol=2e-5, rtol=0)))
         plain_msg = (f"plain {plain_ms:.3f} ms; scaled_dot_product_attention "
                      f"max_abs_err {lib_err:.3g} against the plain version")
         del want
     del got, lib
     flops = 4 * b * hq * d * attention_pairs(lq, lk, kw.get("causal", True))
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    bound_s = {"operations": flops / BF16_FLOPS_PER_S,
-               "bytes": nbytes / HBM_BYTES_PER_S}
+    rate = (BF16_FLOPS_PER_S if q.dtype == torch.bfloat16
+            else F32_FLOPS_PER_S)
+    bound_s = {"operations": flops / rate, "bytes": nbytes / HBM_BYTES_PER_S}
     bound_by = max(bound_s, key=bound_s.get)
     row = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "bound_ms": bound_s[bound_by] * 1e3, "bound_by": bound_by,
@@ -2860,9 +2910,16 @@ def lm_f32_end_to_end(arch, prompt_len: int = 512, gen: int = 8) -> None:
     prompt = torch.randint(0, cfg.vocab, (1, prompt_len), generator=g,
                            device="cuda", dtype=torch.int32)
     kernel = ops.flash_attention
+    layer0 = []
+
+    def keeping(*a, **kw):                  # keeps the first launch's args
+        if not layer0:
+            layer0.append((a, kw))
+        return kernel(*a, **kw)
+
     runs = {}
     ops.reset_counts()
-    for name, attention in (("kernel", kernel), ("plain", ref.attention_ref)):
+    for name, attention in (("kernel", keeping), ("plain", ref.attention_ref)):
         ops.flash_attention = attention
         try:
             logits, _ = T.prefill(cfg, params, prompt)
@@ -2888,6 +2945,12 @@ def lm_f32_end_to_end(arch, prompt_len: int = 512, gen: int = 8) -> None:
                              f"once a layer a prefill")
     del params, runs
     torch.cuda.empty_cache()
+    # the f32 variant timed on layer 0's launch of the prefill
+    (a, kw), = layer0
+    log(f"[timing] lm f32 prompt {prompt_len}, layer 0 ({nvidia_smi_line()})"
+        ":")
+    time_flash(a, kw)
+    del a, kw, layer0
 
 
 # ---------------------------------------------------------------------------
@@ -2965,6 +3028,24 @@ def segsum_phase() -> tuple[dict, int, float]:
 
 
 
+def lint_phase() -> None:
+    """The [lint] phase: the port's contract linter over the
+    ``repro_torch`` this script imports.  Any finding (or a source it
+    cannot parse) fails the run."""
+    import repro_torch
+    from repro_torch.analysis import render_text, run_analysis
+
+    t0 = time.perf_counter()
+    project, findings = run_analysis(
+        str(Path(repro_torch.__file__).resolve().parent))
+    log(f"[lint] {len(findings)} findings in {len(project.files)} .py and "
+        f"{len(project.cuda_files)} .cu files ({time.perf_counter() - t0:.1f}"
+        " s)")
+    if findings or project.errors:
+        log(render_text(project, findings))
+        raise AssertionError("the contract linter reports findings")
+
+
 def main() -> int:
     try:
         import torch
@@ -2990,6 +3071,7 @@ def main() -> int:
     smi = nvidia_smi_line()
     log(f"[device] {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
+    lint_phase()
 
     t0 = time.perf_counter()
     for src, report in build.build_all(build.sources()).items():

@@ -576,7 +576,9 @@ class MiningApp:
     to_extend_state: Optional[Callable] = None
     to_add: Optional[Callable] = None
     to_add_bits: Optional[Callable] = None
-    to_add_spec: Optional[tuple] = None
+    # to_add's kernel form, whose identity plan_key already carries (the
+    # keys stay equal to the JAX package's, which has no such field)
+    to_add_spec: Optional[tuple] = None  # repro: ignore[plan-signature]
     to_add_vertex_mask: Optional[Callable] = None
     update_state_kernel: Optional[Callable | tuple] = None
     state_histogram: Optional[Callable] = None

@@ -57,6 +57,9 @@ def make_cf_app(k: int, use_dag: bool = True,
 
     specs = tuple(clique_spec(kk, use_dag, eager_prune)
                   for kk in range(2, max(k, 3)))
+    # without eager pruning every slot extends, so the capacities differ:
+    # the ablation keys its plans apart (the default keys as JAX's does)
     return MiningApp(name=f"{k}-clique", kind="vertex", max_size=k,
                      use_dag=use_dag, to_extend=to_extend, to_add=to_add,
-                     to_add_spec=None if None in specs else specs)
+                     to_add_spec=None if None in specs else specs,
+                     plan_key="" if eager_prune else "no-eager-prune")

@@ -160,9 +160,8 @@ def _make_set_histogram(plan: PatternSetPlan, dedup_slot: tuple[int, ...]):
         pm = torch.zeros(n_dedup, dtype=torch.int32, device=state.device)
         for b, pid in enumerate(leaves):
             pm[pid] += (v * ((state >> b) & 1)).sum(dtype=torch.int32)
-        gather = torch.tensor(dedup_slot, dtype=torch.long,
-                              device=state.device)
-        return pm[gather]
+        # a slot per input pattern, by host indices (no host-to-device copy)
+        return torch.stack([pm[s] for s in dedup_slot])
 
     return state_histogram
 

@@ -35,7 +35,10 @@ def all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
     if group is None:
         return t.clone()
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-    buf = t.to("cpu", copy=True) if _on_host(group) else t.clone()
+    if _on_host(group):
+        buf = t.to("cpu", copy=True)  # repro: ignore[host-sync] gloo's copy
+    else:
+        buf = t.clone()
     dist.all_reduce(buf, op=red, group=group)
     return buf.to(t.device)
 
@@ -46,7 +49,10 @@ def all_gather(t: torch.Tensor, group) -> list[torch.Tensor]:
     if group is None:
         return [t]
     _, n = world(group)
-    src = t.to("cpu", copy=True) if _on_host(group) else t.contiguous()
+    if _on_host(group):
+        src = t.to("cpu", copy=True)  # repro: ignore[host-sync] gloo's copy
+    else:
+        src = t.contiguous()
     outs = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(outs, src, group=group)
     return [o.to(t.device) for o in outs]

@@ -39,11 +39,21 @@ class EmbeddingLevel:
         return sum(c.numel() for c in cols) * 4 + 4
 
 
+def count_tensor(n: torch.Tensor | int, device) -> torch.Tensor:
+    """``n`` as an int32 scalar on ``device``: a tensor is cast, a Python
+    int filled in on the device.  (``torch.tensor(n, device=...)`` copies
+    from pageable host memory, which waits for the card: a replay must not
+    make one.)"""
+    if isinstance(n, torch.Tensor):
+        return n.to(device=device, dtype=torch.int32)
+    return torch.full((), n, dtype=torch.int32, device=device)
+
+
 def init_level0_vertex(src: torch.Tensor, dst: torch.Tensor,
                        n: torch.Tensor | int) -> list[EmbeddingLevel]:
     """Initial worklist of single-edge embeddings (Alg. 1 line 4): level 0
     stores v0 in ``idx`` and v1 in ``vid``."""
-    n = torch.as_tensor(n, dtype=torch.int32, device=src.device)
+    n = count_tensor(n, src.device)
     return [EmbeddingLevel(vid=dst.to(torch.int32), idx=src.to(torch.int32),
                            n=n)]
 
@@ -52,7 +62,7 @@ def init_level0_edge(src: torch.Tensor, dst: torch.Tensor,
                      eid: torch.Tensor, n: torch.Tensor | int
                      ) -> list[EmbeddingLevel]:
     """Initial worklist of the edge-induced pipeline: one edge each."""
-    n = torch.as_tensor(n, dtype=torch.int32, device=src.device)
+    n = count_tensor(n, src.device)
     return [EmbeddingLevel(vid=dst.to(torch.int32), idx=src.to(torch.int32),
                            n=n, his=torch.zeros_like(dst, dtype=torch.int32),
                            eid=eid.to(torch.int32))]

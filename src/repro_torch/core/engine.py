@@ -843,9 +843,7 @@ def bounded_mine_vertex(ctx: GraphCtx, app: MiningApp, src: torch.Tensor,
     contract).  This is the one level loop under a ``PlanCapPolicy``.
     """
     be = get_backend(backend if backend is not None else app.backend)
-    pipe = _VertexPipeline(_PhaseOps(ctx, app, be), src, dst,
-                           torch.as_tensor(n_valid, dtype=torch.int32,
-                                           device=ctx.device))
+    pipe = _VertexPipeline(_PhaseOps(ctx, app, be), src, dst, n_valid)
     caps, _ = clip_caps(caps)
     policy = PlanCapPolicy(MiningPlan(kind="vertex", caps=caps), ctx.device)
     run_level_loop(pipe, policy)
@@ -867,9 +865,8 @@ def bounded_mine_edge(ctx: GraphCtx, app: MiningApp, src: torch.Tensor,
     every rank's support filter sees the global MNI supports.
     """
     be = get_backend(backend if backend is not None else app.backend)
-    n = torch.as_tensor(n_valid, dtype=torch.int32, device=ctx.device)
     pipe = _EdgePipeline(_PhaseOps(ctx, app, be), src=src, dst=dst, eid=eid,
-                         n=n, group=group)
+                         n=n_valid, group=group)
     caps, filter_caps = clip_caps(caps, filter_caps)
     policy = PlanCapPolicy(MiningPlan(kind="edge", caps=caps,
                                       filter_caps=filter_caps), ctx.device)

@@ -42,6 +42,10 @@ from repro_torch.sparse.ops import compact_mask, expand_ragged
 # Candidate slots are int32 and capacities are powers of two, so one level
 # can plan at most 2^30 candidate slots.
 MAX_CAND_CAP = 1 << 30
+# The packed FSM membership's rows a block (its keys' temporaries) and the
+# scratch words that take its no-op adds.
+PACKED_CHUNK_ROWS = 1 << 21
+PACKED_SCRATCH = 1 << 16
 INT_MAX = P.INT_MAX
 
 
@@ -558,28 +562,63 @@ def _packed_membership(ctx: GraphCtx, vert_vid, n_verts, ok_rows, perms,
     """:func:`_membership` packed into 32-bit words, built without the
     dense table: ``int32[park, ceil(n_vertices / 32)]``, vertex ``v`` bit
     ``v & 31`` of word ``v >> 5`` (the JAX package's ``uint32`` layout read
-    as ``int32``, bit 31 the sign bit).  One permutation at a time, the
-    live (row, vertex) keys are deduplicated, those whose bit is already
-    set are dropped, and each remaining bit is added in once: a once-only
+    as ``int32``, bit 31 the sign bit).
+
+    The permutations a row matches put its local vertex ``l`` in domain
+    ``d`` iff one of them has ``perm[d] == l``, so a row contributes at
+    most ``V * V`` (domain, vertex) keys, whatever the number of
+    permutations.  In static shapes, as the JAX package's packed path, so
+    nothing waits for the host: for each block of
+    :data:`PACKED_CHUNK_ROWS` rows, the keys are sorted with the dead ones
+    parked at a sentinel past every live key, the first key of each run is
+    marked, a key whose bit is already set is unmarked, and one
+    ``index_add_`` adds each marked key's bit into its word: a once-only
     sum of distinct powers of two is their bitwise OR, and with disjoint
-    bits the int32 sum never overflows.  Peak memory is the words and one
-    permutation's keys."""
+    bits the int32 sum never overflows.  Every unmarked key adds 0 into a
+    scratch tail of :data:`PACKED_SCRATCH` words, spread by position so
+    that its atomics do not collide.  Keys are int32 where the table's
+    keys fit.  Peak memory is the words and one block's keys."""
     n = max(ctx.n_vertices, 1)
     n_words = -(-n // 32)
-    words = torch.zeros(park * n_words, dtype=torch.int32,
-                        device=canon.device)
-    vid_c = vert_vid.clamp(0, n - 1).long()
-    for pi, perm in enumerate(perms):
-        ok = (codes_all[:, pi] == canon) & ok_rows
-        bucket = _domain_contributions(n_verts, ok, perm, pat, V, park)
-        live = bucket < park
-        keys = torch.unique(bucket[live] * n + vid_c[live])
-        slot = keys // n * n_words + (keys % n >> 5)
-        bit = (keys % n & 31).to(torch.int32)
-        new = (words[slot] >> bit) & 1 == 0
-        bit = bit[new]
-        words.index_add_(0, slot[new], torch.ones_like(bit) << bit)
-    return words.view(park, n_words)
+    size = park * n_words
+    dev = canon.device
+    words = torch.zeros(size + PACKED_SCRATCH, dtype=torch.int32, device=dev)
+    kdt = torch.int32 if (park + 1) * n < 2 ** 31 else torch.int64
+    dead = park * n                       # past every live key
+    dead_t = torch.full((), dead, dtype=kdt, device=dev)
+    # the permutations that put local vertex l in domain d, by (d, l)
+    puts = {(d, l): [pi for pi, p in enumerate(perms) if p[d] == l]
+            for d in range(V) for l in range(V)}
+    cap = vert_vid.shape[0]
+    for r0 in range(0, cap, PACKED_CHUNK_ROWS):
+        rows = slice(r0, min(r0 + PACKED_CHUNK_ROWS, cap))
+        ok = (codes_all[rows] == canon[rows, None]) & ok_rows[rows, None]
+        base = pat[rows].to(kdt) * (V * n)
+        nv = n_verts[rows]
+        m = base.shape[0]
+        keys = torch.empty(V * V * m, dtype=kdt, device=dev)
+        for l in range(V):
+            key_l = base + vert_vid[rows, l].clamp(0, n - 1).to(kdt)
+            real = nv > l
+            for d in range(V):
+                put = ok[:, puts[d, l][0]]
+                for pi in puts[d, l][1:]:
+                    put = put | ok[:, pi]
+                i = l * V + d
+                torch.where(put & real, key_l + d * n, dead_t,
+                            out=keys[i * m:(i + 1) * m])
+        keys = torch.sort(keys).values
+        first = torch.ones_like(keys, dtype=torch.bool)
+        first[1:] = keys[1:] != keys[:-1]
+        q = keys // n                     # pat * V + domain; park if dead
+        r = keys - q * n                  # the vertex
+        slot = q * n_words + (r >> 5)     # dead: ``size``
+        bit = (r & 31).to(torch.int32)
+        new = first & (q < park) & ((words[slot] >> bit) & 1 == 0)
+        spill = size + torch.arange(keys.shape[0], device=dev) % PACKED_SCRATCH
+        words.index_add_(0, torch.where(new, slot, spill),
+                         torch.where(new, 1 << bit, 0))
+    return words[:size].view(park, n_words)
 
 
 def popcount32(words: torch.Tensor) -> torch.Tensor:

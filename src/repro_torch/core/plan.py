@@ -182,7 +182,8 @@ def compatible_caps(plan: MiningPlan, app) -> bool:
     return True
 
 
-def clip_caps(caps, filter_caps=()
+def clip_caps(caps: tuple[tuple[int, int], ...],
+              filter_caps: tuple[int, ...] = ()
               ) -> tuple[tuple[tuple[int, int], ...], tuple[int, ...]]:
     """Capacities an executor can run: each ``cand_cap`` (and filter
     capacity) at most 2^30 int32 candidate slots, each ``out_cap`` at most

@@ -6,6 +6,7 @@ build takes seconds).  Libraries go to ``build/kernels/`` at the repository
 root, named by a hash of their source and flags, and are built at first
 use; a changed source builds anew.  Nothing here runs at import time.
 """
+# repro: host-module
 from __future__ import annotations
 
 import ctypes

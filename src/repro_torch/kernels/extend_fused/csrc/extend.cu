@@ -629,6 +629,7 @@ __device__ __forceinline__ void fill(int* out, int s0, int s1, int x) {
 // values, as the plain version writes them.  A CTA wholly in the uniform
 // tail (uniform_from) evaluates that one slot on one thread and only
 // stores it.
+// repro: grid[concurrent]
 __global__ void __launch_bounds__(kTile)
 extend_candidates_kernel(Tables t, int cand_cap, int* __restrict__ row_out,
                          int* __restrict__ u_out, int* __restrict__ slot_out,
@@ -671,6 +672,7 @@ __device__ __forceinline__ int live_end(const Tables& t, int cand_cap,
 // Pass 1: the survivors of each 512-slot tile.  A CTA takes kPairTiles
 // consecutive tiles under one parent window, one slot per thread and tile.
 template <int M, class P>
+// repro: grid[concurrent]
 __global__ void __launch_bounds__(kTile)
 extend_count_kernel(Tables t, int cand_cap, Pack pk,
                     const __grid_constant__ P pred,
@@ -724,6 +726,7 @@ __device__ __forceinline__ int tile_rank(bool keep, int* warp_base,
 // Pass 2: tile i's survivors at bases[i] + their rank in the tile, the
 // tiles taken as in pass 1.
 template <int M, class P>
+// repro: grid[concurrent]
 __global__ void __launch_bounds__(kTile)
 extend_scatter_kernel(Tables t, int cand_cap, Pack pk,
                       const __grid_constant__ P pred,
@@ -830,6 +833,7 @@ constexpr int surv_bytes() {
 }
 
 template <int M, class P>
+// repro: grid[lookback]
 __global__ void __launch_bounds__(kTile)
 extend_pruned_1p_kernel(Tables t, int cand_cap, Pack pk,
                         const __grid_constant__ P pred, int out_cap,
@@ -1000,6 +1004,7 @@ __device__ __forceinline__ EdgeOut edge_slot(const EdgeTables& t,
 // u = new_eid = -1 and add = 0, as the plain version does: constants,
 // which need no search, and which a CTA wholly past the total only stores.
 template <int E>
+// repro: grid[concurrent]
 __global__ void __launch_bounds__(kTile)
 extend_edge_kernel(EdgeTables t, int cand_cap, int* __restrict__ row_out,
                    int* __restrict__ s_out, int* __restrict__ u_out,

@@ -290,6 +290,7 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
 // register c * 4 + i * 2 + j holds row 16 * (t / 32) + (t % 32) / 4 + 8 * i
 // and column 8 * c + 2 * (t % 4) + j.
 template <int D>
+// repro: grid[concurrent]
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_tc(const __grid_constant__ CUtensorMap tm_q,
          const __grid_constant__ CUtensorMap tm_k,
@@ -602,6 +603,7 @@ __device__ __forceinline__ float row_sum(float x) {
 }
 
 template <int D>
+// repro: grid[concurrent]
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fma(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ o, int hq,

@@ -246,6 +246,7 @@ __device__ int pair_count(const int* __restrict__ col, int m, const Run& r,
 // A warp takes 32 consecutive pairs, lane i holding pair i's bounds, and
 // stages each run's A' in its own buffer.  It loads a pair's first chunks
 // of B, and a new run's of A', before it waits on either.
+// repro: grid[concurrent]
 __global__ void __launch_bounds__(kThreads)
 intersect_count_kernel(const int* __restrict__ col, int m,
                        const int* __restrict__ lo_a,

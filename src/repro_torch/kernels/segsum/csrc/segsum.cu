@@ -56,6 +56,7 @@ __device__ __forceinline__ void flush(float* acc, int seg, int n_segments,
 }
 
 template <typename T>
+// repro: grid[concurrent]
 __global__ void __launch_bounds__(kThreads)
 segsum_kernel(const T* __restrict__ data, const int* __restrict__ seg,
               long long n, int d, int n_segments, float* __restrict__ acc) {
@@ -103,6 +104,7 @@ segsum_kernel(const T* __restrict__ data, const int* __restrict__ seg,
   }
 }
 
+// repro: grid[concurrent]
 __global__ void to_bf16_kernel(const float* __restrict__ in,
                                __nv_bfloat16* __restrict__ out, long long n) {
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;

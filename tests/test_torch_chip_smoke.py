@@ -766,3 +766,21 @@ def test_cli_checked_validates_both_exports(tmp_path):
     assert (tmp_path / "tc.trace.json").exists()
     from repro_torch.obs import trace
     assert not trace.on
+
+
+def test_lint_phase_passes_on_the_port(capsys):
+    _smoke().lint_phase()
+    out = capsys.readouterr().out
+    assert out.startswith("[lint] 0 findings in ") and ".cu files" in out
+
+
+def test_packed_reduce_check_equals_the_dense_path(monkeypatch, capsys):
+    """The world-1 packed-reduce check, on one local rank with the sync
+    check made a plain call (the CPU has no device syncs to catch)."""
+    from repro_torch.core import make_fsm_app
+    smoke = _smoke()
+    monkeypatch.setattr(smoke, "sync_free", lambda fn: fn())
+    g, ms = _skewed_labeled_graph()
+    smoke.packed_reduce_sync_free(None, g, make_fsm_app(3, ms), "cuda")
+    assert "no device sync in the whole reduce_domain_sharded(packed=True)" \
+        in capsys.readouterr().out

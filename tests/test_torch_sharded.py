@@ -222,6 +222,18 @@ def test_packed_words_are_jax_bit_layout():
     assert counts.tolist() == member.sum(axis=1).tolist()
 
 
+def test_packed_words_do_not_depend_on_the_row_blocks(monkeypatch):
+    """The packed membership built a few rows at a time (every block sees
+    the bits the blocks before it set) and with a one-word scratch tail
+    equals the one built in one block, bit for bit."""
+    args = _fsm_membership_args()
+    whole = R._packed_membership(*args)
+    assert args[1].shape[0] > 7
+    monkeypatch.setattr(R, "PACKED_CHUNK_ROWS", 7)
+    monkeypatch.setattr(R, "PACKED_SCRATCH", 1)
+    assert torch.equal(R._packed_membership(*args), whole)
+
+
 def test_packed_reduce_builds_no_dense_table(monkeypatch):
     """The packed path never builds the dense ``uint8[park, n_vertices]``
     table: with the dense builder made to fail, it still equals the dense
