@@ -195,7 +195,32 @@ Phases (any failure raises, and the script exits non-zero):
               variant timed on that prefill's layer-0 arguments beside the
               plain version and ``scaled_dot_product_attention``, its bound
               on the f32 FMA pipes.
-15. segsum  — the segment sum ``sorted_segment_sum`` at ogb_products'
+15. moe     — DeepSeek-MoE-16B at full width in bf16 (random weights from
+              seed 0; 16,669,853,696 parameters, 33.3 GB) through
+              ``serve_lm``: sets A and B with every ``flash_attention``
+              launch held against ``attention_ref`` (Hq = Hkv = 16, group
+              1), the kernel timed on set A's layer 0 beside the plain
+              version and ``scaled_dot_product_attention`` (the JSON row
+              ``flash_attention:group1``), then each set served again with
+              the launches counted (28 a prefill, the tensor-core variant,
+              no plain call), its prefill time, decode rate, peak memory
+              and first tokens, and a profile of set A's prefill and of one
+              decode step; one MoE layer (``apply_moe`` on the first 512
+              tokens of set A's layer-0 input, f32, with no device sync)
+              against the same on the CPU: dispatch integers equal, y
+              within 1e-4; then the first 4 of the 28 layers at full width
+              in f32, kernel against plain attention, last-token logits
+              within 1e-3 and the same 8 greedy tokens unless a router
+              near-tie flipped a (token, layer) expert set, whose count is
+              printed either way.
+16. recsys  — DIEN's full config (10M-item table, f32, TF32 off) through
+              ``serve_recsys`` at serve_p99 (512) and serve_bulk (262,144)
+              requests, three calls each, and ``score_candidates`` over
+              retrieval_cand's 1,000,000 candidates: wall times and peak
+              memory; batch 512's scores and the first 65,536 candidates'
+              against the CPU on the same weights and inputs (1e-4); a
+              profile of one batch-512 forward.
+17. segsum  — the segment sum ``sorted_segment_sum`` at ogb_products'
               scale (``configs/shapes.py``: 61,859,140 rows of 100 f32
               values into 2,449,029 sorted segments, 24.7 GB): sorted,
               unsorted and bf16 launches held against the plain version,
@@ -2738,7 +2763,7 @@ def attention_pairs(lq: int, lk: int, causal: bool = True) -> int:
 
 
 def lm_checked(arch, sets=LM_SETS, smoke: bool = False, device=None,
-               chunk: int = 1 << 25) -> "KernelChecks":
+               chunk: int = 1 << 25, label: str = "lm") -> "KernelChecks":
     """The request ``sets`` through ``serve_lm`` (at the arch's full width
     unless ``smoke``) with every ``flash_attention`` launch held against
     its plain version; keeps each set's first launch (its layer 0) in
@@ -2749,21 +2774,21 @@ def lm_checked(arch, sets=LM_SETS, smoke: bool = False, device=None,
     checks = KernelChecks(chunk, names=tuple(FLASH_REPLACES))
     checks.layer0 = {}
     with checks:
-        for label, (batch, prompt, gen) in sets.items():
+        for name, (batch, prompt, gen) in sets.items():
             checks.keep = True
             t0 = time.perf_counter()
             serve_lm(arch, smoke, batch, prompt, gen, seed=0, device=device)
-            checks.layer0[label] = checks.kept.pop("flash_attention")
-            log(f"[check] lm set {label}: served with every launch checked "
-                f"in {time.perf_counter() - t0:.1f} s")
+            checks.layer0[name] = checks.kept.pop("flash_attention")
+            log(f"[check] {label} set {name}: served with every launch "
+                f"checked in {time.perf_counter() - t0:.1f} s")
             if torch.cuda.is_available():
                 torch.cuda.empty_cache()
-    checks.report("lm")
+    checks.report(label)
     cfg = arch.smoke if smoke else arch.config
     want = cfg.n_layers * len(sets)
     if checks.launches["flash_attention"] != want:
-        raise AssertionError(f"lm: {checks.launches} checked launches, not "
-                             f"{want}")
+        raise AssertionError(f"{label}: {checks.launches} checked launches, "
+                             f"not {want}")
     return checks
 
 
@@ -2831,7 +2856,7 @@ def time_flash(a, kw, plain: bool = True) -> dict:
     return row
 
 
-def lm_main(arch, label: str) -> int:
+def lm_main(arch, label: str, phase: str = "lm") -> int:
     """Request set ``label`` through ``serve_lm`` with the launches counted:
     one ``flash_attention`` launch per layer of the prefill and no plain
     call.  Returns the launches."""
@@ -2850,8 +2875,8 @@ def lm_main(arch, label: str) -> int:
     plain = ref.attention_ref.calls
     peak = torch.cuda.max_memory_allocated()
     rate = stats["decode_tokens"] / stats["decode_s"]
-    log(f"[main] lm set {label} (batch {batch}, prompt {prompt}, {gen} new "
-        f"tokens): prefill {stats['prefill_s']:.3f} s, decode "
+    log(f"[main] {phase} set {label} (batch {batch}, prompt {prompt}, {gen} "
+        f"new tokens): prefill {stats['prefill_s']:.3f} s, decode "
         f"{stats['decode_tokens']} tokens in {stats['decode_s']:.3f} s "
         f"({rate:.1f} tokens/s), peak {peak} B, launches {launches} "
         f"{variants}, plain calls {plain}, first tokens "
@@ -2859,12 +2884,12 @@ def lm_main(arch, label: str) -> int:
     vocab = arch.config.vocab
     if tuple(tokens.shape) != (batch, gen) or not (
             (tokens >= 0) & (tokens < vocab)).all():
-        raise AssertionError(f"lm set {label}: tokens {tuple(tokens.shape)} "
-                             f"outside [0, {vocab})")
+        raise AssertionError(f"{phase} set {label}: tokens "
+                             f"{tuple(tokens.shape)} outside [0, {vocab})")
     n_layers = arch.config.n_layers
     if launches != n_layers or plain or variants != {"tensor_core": n_layers,
                                                      "fma": 0}:
-        raise AssertionError(f"lm set {label}: {launches} launches "
+        raise AssertionError(f"{phase} set {label}: {launches} launches "
                              f"{variants}, {plain} plain calls")
     return launches
 
@@ -2894,17 +2919,69 @@ def profile_lm(arch, label: str = "A") -> None:
     torch.cuda.empty_cache()
 
 
-def lm_f32_end_to_end(arch, prompt_len: int = 512, gen: int = 8) -> None:
-    """The full-width model in f32 (TF32 off): prefill on the kernel against
-    prefill on the plain attention, last-token logits within 1e-3, and the
-    same greedy tokens from ``serve_lm``."""
+def f32_config(arch, n_layers: int | None = None):
+    """The arch's full-width config in f32, cut to its first ``n_layers``
+    layers when given."""
+    cut = {} if n_layers is None else {"n_layers": n_layers}
+    return dataclasses.replace(arch.config, dtype="float32", **cut)
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """While active, each ``moe.route`` call's top-k experts ([T, K]) are
+    appended to the list this yields."""
+    from repro_torch.models import moe
+
+    route, calls = moe.route, []
+
+    def recording(*a, **kw):
+        r = route(*a, **kw)
+        calls.append(r.expert.clone())
+        return r
+
+    moe.route = recording
+    try:
+        yield calls
+    finally:
+        moe.route = route
+
+
+def route_flips(a: list, b: list) -> int:
+    """(token, layer) top-k expert sets that differ between two runs' route
+    calls, call by call; a call of another shape, or one only one run made,
+    counts all its tokens (the larger count)."""
+    flips = 0
+    for i in range(max(len(a), len(b))):
+        x = a[i] if i < len(a) else None
+        y = b[i] if i < len(b) else None
+        if x is None or y is None or x.shape != y.shape:
+            flips += max(t.shape[0] for t in (x, y) if t is not None)
+            continue
+        x, y = x.sort(-1).values, y.sort(-1).values
+        flips += int((x != y).any(-1).sum())
+    return flips
+
+
+def lm_f32_end_to_end(arch, prompt_len: int = 512, gen: int = 8,
+                      n_layers: int | None = None,
+                      timed: bool = True) -> None:
+    """The full-width model in f32 (TF32 off), its first ``n_layers``
+    layers when given: prefill on the kernel against prefill on the plain
+    attention, last-token logits within 1e-3, and the same greedy tokens
+    from ``serve_lm``.  A MoE model also counts the router flips, the
+    (token, layer) expert sets that differ between the two runs: a near-tie
+    in the router turns on attention differences of 1e-6, so a mismatch
+    fails the check only where no route flipped."""
     import torch
     from repro_torch.kernels.flash_attention import ops, ref
     from repro_torch.launch.serve import serve_lm
     from repro_torch.models import transformer as T
 
-    cfg = dataclasses.replace(arch.config, dtype="float32")
+    cfg = f32_config(arch, n_layers)
     arch32 = dataclasses.replace(arch, config=cfg)
+    if n_layers is not None:
+        log(f"[main] lm f32 {arch.arch_id}: the first {n_layers} of "
+            f"{arch.config.n_layers} layers, full width")
     g = torch.Generator("cuda").manual_seed(0)
     params = T.init_params(cfg, g)
     prompt = torch.randint(0, cfg.vocab, (1, prompt_len), generator=g,
@@ -2922,20 +2999,23 @@ def lm_f32_end_to_end(arch, prompt_len: int = 512, gen: int = 8) -> None:
     for name, attention in (("kernel", keeping), ("plain", ref.attention_ref)):
         ops.flash_attention = attention
         try:
-            logits, _ = T.prefill(cfg, params, prompt)
-            tokens = serve_lm(arch32, False, 1, prompt_len, gen, seed=0,
-                              prompt=prompt)
+            with recorded_routes() as routes:
+                logits, _ = T.prefill(cfg, params, prompt)
+                tokens = serve_lm(arch32, False, 1, prompt_len, gen, seed=0,
+                                  prompt=prompt)
         finally:
             ops.flash_attention = kernel
-        runs[name] = (logits, tokens)
+        runs[name] = (logits, tokens, routes)
     err = float((runs["kernel"][0] - runs["plain"][0]).abs().max())
     same = torch.equal(runs["kernel"][1], runs["plain"][1])
+    flips = route_flips(runs["kernel"][2], runs["plain"][2])
     log(f"[main] lm f32 (TF32 off), prompt {prompt_len}: last-token logits "
         f"differ by {err:.3g} (logits range "
         f"{float(runs['plain'][0].abs().max()):.3g}), {gen} greedy tokens "
-        f"equal: {same} {runs['kernel'][1][0].tolist()}, kernel launches "
-        f"{ops.VARIANT_LAUNCHES}")
-    if not err <= 1e-3 or not same:
+        f"equal: {same} {runs['kernel'][1][0].tolist()}, router flips "
+        f"{flips} of {sum(r.shape[0] for r in runs['plain'][2])} (token, "
+        f"layer) routes, kernel launches {ops.VARIANT_LAUNCHES}")
+    if flips == 0 and (not err <= 1e-3 or not same):
         raise AssertionError("lm f32: the kernel's prefill differs from the "
                              "plain attention's")
     # the kernel's run: one launch a layer in T.prefill and in serve_lm
@@ -2945,12 +3025,223 @@ def lm_f32_end_to_end(arch, prompt_len: int = 512, gen: int = 8) -> None:
                              f"once a layer a prefill")
     del params, runs
     torch.cuda.empty_cache()
-    # the f32 variant timed on layer 0's launch of the prefill
-    (a, kw), = layer0
-    log(f"[timing] lm f32 prompt {prompt_len}, layer 0 ({nvidia_smi_line()})"
-        ":")
-    time_flash(a, kw)
-    del a, kw, layer0
+    if timed:
+        # the f32 variant timed on layer 0's launch of the prefill
+        (a, kw), = layer0
+        log(f"[timing] lm f32 prompt {prompt_len}, layer 0 "
+            f"({nvidia_smi_line()}):")
+        time_flash(a, kw)
+        del a, kw
+    del layer0
+
+
+# ---------------------------------------------------------------------------
+# MoE LM serving: DeepSeek-MoE-16B through serve_lm on the flash kernel
+
+MOE_ARCH = "deepseek-moe-16b"
+MOE_FLASH_ROW = "flash_attention:group1"    # K8 on Hq = Hkv (group 1)
+MOE_F32_LAYERS = 4             # the f32 check's cut of the 28 layers
+MOE_LAYER_TOKENS = 512         # the card-against-CPU MoE layer's tokens
+
+
+@contextlib.contextmanager
+def first_moe_input(n_tokens: int):
+    """While active, the first ``apply_moe`` call's first ``n_tokens``
+    tokens and its layer's weights are copied into the dict this yields
+    (``x``, ``params``)."""
+    from repro_torch.models import moe
+
+    apply, kept = moe.apply_moe, {}
+
+    def keeping(params, x, cfg):
+        if not kept:
+            kept["x"] = x[:n_tokens].clone()
+            kept["params"] = {k: v.clone() for k, v in params.items()}
+        return apply(params, x, cfg)
+
+    moe.apply_moe = keeping
+    try:
+        yield kept
+    finally:
+        moe.apply_moe = apply
+
+
+def dispatch_diff(a, b) -> list[str]:
+    """The fields of two ``moe.Dispatch`` routings whose integers differ
+    (expert, order, slot, keep, capacity)."""
+    import torch
+    diff = [name for name in ("expert", "order", "slot", "keep")
+            if not torch.equal(getattr(a, name).cpu(),
+                               getattr(b, name).cpu())]
+    return diff + (["capacity"] if a.capacity != b.capacity else [])
+
+
+def moe_layer_against_cpu(x, params, cfg) -> dict:
+    """``apply_moe`` in f32 on x's device (under ``sync_free`` on the card)
+    and on the CPU, on the same tokens and weights: the dispatch integers
+    must be equal and y within 1e-4.  Returns the errors and the
+    routing's capacity and dropped assignments."""
+    import torch
+    from repro_torch.models import moe
+
+    x32 = x.float()
+    p32 = {k: v.float() for k, v in params.items()}
+
+    def run():
+        return moe.route(p32, x32, cfg), moe.apply_moe(p32, x32, cfg)
+
+    r, (y, aux) = sync_free(run) if x.is_cuda else run()
+    x_cpu = x32.cpu()
+    p_cpu = {k: v.cpu() for k, v in p32.items()}
+    r_cpu = moe.route(p_cpu, x_cpu, cfg)
+    y_cpu, aux_cpu = moe.apply_moe(p_cpu, x_cpu, cfg)
+    diff = dispatch_diff(r, r_cpu)
+    out = {"y_err": float((y.cpu() - y_cpu).abs().max()),
+           "aux_err": abs(float(aux) - float(aux_cpu)),
+           "capacity": r.capacity,
+           "dropped": int((~r_cpu.keep).sum()), "dispatch_diff": diff}
+    log(f"[main] moe layer 0, {x.shape[0]} tokens, f32, {x.device.type} "
+        f"against cpu: dispatch {'equal' if not diff else diff}, capacity "
+        f"{out['capacity']}, dropped assignments {out['dropped']}, y within "
+        f"{out['y_err']:.3g}, aux within {out['aux_err']:.3g}")
+    if diff or not out["y_err"] <= 1e-4:
+        raise AssertionError("moe: the card's layer differs from the CPU's")
+    return out
+
+
+def moe_phase() -> tuple[dict, int, float]:
+    """The [moe] phase: DeepSeek-MoE-16B at full width in bf16 through
+    ``serve_lm``, sets A and B with every K8 launch checked, K8 timed on
+    set A's layer 0 (group 1), the counted sets, a profile of set A, one
+    MoE layer on the card against the CPU, then the first four layers in
+    f32.  Returns K8's group-1 timing row, the counted launches and the
+    checks' largest error."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import moe
+
+    arch = get_arch(MOE_ARCH)
+    cfg = arch.config
+    kv = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2   # K, V; bf16
+    log(f"[moe] {MOE_ARCH}: {cfg.param_count()} parameters "
+        f"({2 * cfg.param_count()} B in bf16), KV cache {kv} B a token, "
+        f"capacity " + ", ".join(
+            f"set {name} {moe.capacity(b * p, cfg.moe)}"
+            for name, (b, p, _) in LM_SETS.items())
+        + " slots an expert in prefill, "
+        f"{moe.capacity(LM_SETS['A'][0], cfg.moe)} in set A's decode")
+    with first_moe_input(MOE_LAYER_TOKENS) as kept:
+        checks = lm_checked(arch, label="moe")
+    a, kw = checks.layer0.pop("A")
+    log(f"[timing] moe set A layer 0, Hq = Hkv = {cfg.n_heads} "
+        f"({nvidia_smi_line()}):")
+    row = time_flash(a, kw)
+    del a, kw
+    checks.layer0.clear()
+    torch.cuda.empty_cache()
+    launches = sum(lm_main(arch, label, phase="moe") for label in LM_SETS)
+    profile_lm(arch)
+    moe_layer_against_cpu(kept["x"], kept["params"], cfg.moe)
+    kept.clear()
+    torch.cuda.empty_cache()
+    lm_f32_end_to_end(arch, n_layers=MOE_F32_LAYERS, timed=False)
+    return row, launches, checks.err["flash_attention"]
+
+
+# ---------------------------------------------------------------------------
+# Recsys serving: DIEN through serve_recsys
+
+RECSYS_CPU_CANDIDATES = 1 << 16     # retrieval scores checked on the CPU
+
+
+def on_cpu(tree):
+    """A dict (of dicts and lists) of tensors, copied to the CPU."""
+    if isinstance(tree, dict):
+        return {k: on_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [on_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+def recsys_phase() -> None:
+    """The [recsys] phase: DIEN's full config (10M-item table) in f32
+    through ``serve_recsys`` at serve_p99's and serve_bulk's batches, three
+    calls each, and ``score_candidates`` over retrieval_cand's 1,000,000
+    candidates: wall times and peak memory; batch 512's scores against the
+    CPU on the same weights and batch (1e-4), the retrieval scores of the
+    first 65,536 candidates too; a profile of one batch-512 forward."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import recsys_batch
+    from repro_torch.launch.serve import serve_recsys
+    from repro_torch.models.recsys import dien as DN
+
+    arch = get_arch("dien")
+    cfg, shapes = arch.config, arch.shapes
+    params = DN.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    table = params["item_emb"].numel() * params["item_emb"].element_size()
+    log(f"[recsys] dien: item table {tuple(params['item_emb'].shape)} f32 "
+        f"({table} B), sequence {cfg.seq_len}, GRU {cfg.gru_dim}, MLP "
+        f"{cfg.mlp}")
+    cpu_params = on_cpu(params)
+    for shape in ("serve_p99", "serve_bulk"):
+        batch = shapes[shape]["batch"]
+        data = recsys_batch(0, 0, batch, cfg.seq_len, cfg.n_items,
+                            cfg.n_cats, device="cuda")
+        for i in range(3):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            stats: dict = {}
+            scores = serve_recsys(arch, False, batch, seed=0,
+                                  batch_data=data, stats=stats)
+            peak = torch.cuda.max_memory_allocated()
+            log(f"[main] recsys {shape} call {i} (batch {batch}): "
+                f"{stats['serve_s']:.4f} s, "
+                f"{batch / stats['serve_s']:.0f} requests/s, peak {peak} B")
+            if tuple(scores.shape) != (batch,) or \
+                    not torch.isfinite(scores).all():
+                raise AssertionError(f"recsys {shape}: scores "
+                                     f"{tuple(scores.shape)}, not finite")
+        if shape == "serve_p99":
+            want = DN.forward(cfg, cpu_params, on_cpu(data))
+            err = float((scores.cpu() - want).abs().max())
+            log(f"[main] recsys serve_p99: the card's scores within "
+                f"{err:.3g} of the CPU's on the same weights and batch "
+                f"(scores range {float(want.abs().max()):.3g})")
+            if not err <= 1e-4:
+                raise AssertionError("recsys: the card's scores differ from "
+                                     "the CPU's")
+            profile_call(lambda: DN.forward(cfg, params, data),
+                         "recsys serve_p99 forward")
+        del data, scores
+    n = shapes["retrieval_cand"]["n_candidates"]
+    g = torch.Generator("cuda").manual_seed(1)
+    hist = torch.randint(0, cfg.n_items, (1, cfg.seq_len), generator=g,
+                         device="cuda", dtype=torch.int32)
+    items = torch.randint(0, cfg.n_items, (n,), generator=g, device="cuda",
+                          dtype=torch.int32)
+    cand = {"hist_items": hist, "hist_cats": hist % cfg.n_cats,
+            "cand_items": items, "cand_cats": items % cfg.n_cats}
+    for i in range(3):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = DN.score_candidates(cfg, params, cand)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        log(f"[main] recsys retrieval_cand call {i}: {n} candidates in "
+            f"{secs:.4f} s, peak {torch.cuda.max_memory_allocated()} B")
+    part = {k: (v if k.startswith("hist") else v[:RECSYS_CPU_CANDIDATES])
+            for k, v in cand.items()}
+    want = DN.score_candidates(cfg, cpu_params, on_cpu(part))
+    err = float((scores[:RECSYS_CPU_CANDIDATES].cpu() - want).abs().max())
+    log(f"[main] recsys retrieval_cand: the first {RECSYS_CPU_CANDIDATES} "
+        f"scores within {err:.3g} of the CPU's")
+    if tuple(scores.shape) != (n,) or not torch.isfinite(scores).all() or \
+            not err <= 1e-4:
+        raise AssertionError("recsys retrieval_cand: wrong scores")
+    del params, cpu_params, cand, scores
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3279,6 +3570,17 @@ def main() -> int:
     profile_lm(arch)
     lm_f32_end_to_end(arch)
     log(f"[lm] phase {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+
+    # MoE LM serving: DeepSeek-MoE-16B at full width, K8 on group 1; then
+    # DIEN recsys serving
+    t_phase = time.perf_counter()
+    timing[MOE_FLASH_ROW], launches[MOE_FLASH_ROW], moe_err = moe_phase()
+    launches["flash_attention"] += launches[MOE_FLASH_ROW]
+    log(f"[moe] phase {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    recsys_phase()
+    log(f"[recsys] phase {time.perf_counter() - t_phase:.1f} s")
 
     t_phase = time.perf_counter()
     timing["sorted_segment_sum"], launches["sorted_segment_sum"], seg_err = \
@@ -3287,7 +3589,9 @@ def main() -> int:
 
     kernels = []
     errs = {**checks16.err, **checks15.err, **checks_tc.err, **checks_1p.err,
-            **checks_lm.err, "sorted_segment_sum": seg_err}
+            **checks_lm.err, "sorted_segment_sum": seg_err,
+            MOE_FLASH_ROW: moe_err}
+    errs["flash_attention"] = max(errs["flash_attention"], moe_err)
     errs[K3_CF_ROW] = errs["extend_candidates"]
     # the K3 row at 4-CF's level 3 counts the launches at its shape
     if sum(K3_SHAPES.values()) != launches["extend_candidates"]:
@@ -3304,6 +3608,7 @@ def main() -> int:
                            **LOOKBACK_REPLACES,
                            **MC_REPLACES, **MIXED_REPLACES,
                            **INTERSECT_REPLACES, **FLASH_REPLACES,
+                           MOE_FLASH_ROW: FLASH_REPLACES["flash_attention"],
                            **SEGSUM_REPLACES}.items():
         t = timing[name]
         module = wrapper_module(name.split(":")[0])

@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution for the launchers
 (counterpart of ``repro.configs.registry``).
 
-Every id of the JAX package is known here; only the ported ones resolve.
-The others raise ``NotImplementedError``: ROADMAP.md queue 1 lists them
+Every id of the JAX package is known here; the LM and recsys ids resolve.
+The GNN ids raise ``NotImplementedError``: ROADMAP.md queue 1 lists them
 with the rest of the ML stack.
 """
 from __future__ import annotations
@@ -20,7 +20,10 @@ ARCH_IDS = [
     "dien",
 ]
 
-_MODULES = {"qwen3-0.6b": "repro_torch.configs.qwen3_0_6b"}
+_PORTED = ["qwen3-0.6b", "command-r-plus-104b", "yi-34b", "deepseek-moe-16b",
+           "kimi-k2-1t-a32b", "dien"]
+_MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
+            for a in _PORTED}
 
 
 @dataclasses.dataclass(frozen=True)

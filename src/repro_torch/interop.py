@@ -6,8 +6,9 @@ its executor recorded.  ``graph_from_arrays`` takes the numpy arrays of a
 ``plan_to_json`` move a :class:`MiningPlan` in the JAX package's JSON
 schema, vertex plans and FSM's edge plans with their filter capacities
 alike, so a plan recorded by the JAX executor replays in the port and
-back.  For the transformer, ``transformer_params_from_numpy`` takes the
-JAX parameter tree as numpy arrays, bf16 leaves bit for bit.  Nothing here
+back.  For the models, ``transformer_params_from_numpy`` (dense and MoE)
+and ``dien_params_from_numpy`` take the JAX parameter tree as numpy
+arrays, bf16 leaves bit for bit.  Nothing here
 imports the JAX package: the exchange is numpy arrays and JSON text.
 """
 from __future__ import annotations
@@ -53,17 +54,27 @@ def _tensor(arr, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(arr).to(dev)
 
 
+def _convert(node, dev: torch.device):
+    """A tree of dicts and lists with numpy leaves, as tensors on dev."""
+    if isinstance(node, dict):
+        return {k: _convert(v, dev) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_convert(v, dev) for v in node]
+    return _tensor(node, dev)
+
+
 def transformer_params_from_numpy(tree, device: DeviceSpec = None) -> dict:
     """The port's transformer parameters from the JAX ones as numpy arrays
     (a nested dict, e.g. ``jax.tree.map(np.asarray, params)``), with the
-    same names, shapes and dtypes; bf16 leaves keep their bits."""
-    dev = resolve_device(device)
+    same names, shapes and dtypes, a MoE model's ``layers["moe"]`` subtree
+    included; bf16 leaves keep their bits."""
+    return _convert(tree, resolve_device(device))
 
-    def convert(node):
-        if isinstance(node, dict):
-            return {k: convert(v) for k, v in node.items()}
-        return _tensor(node, dev)
-    return convert(tree)
+
+def dien_params_from_numpy(tree, device: DeviceSpec = None) -> dict:
+    """The port's DIEN parameters from the JAX ones as numpy arrays, with
+    the same names, shapes and dtypes; ``mlp`` stays a list of layers."""
+    return _convert(tree, resolve_device(device))
 
 
 def plan_from_json(text: str) -> MiningPlan:

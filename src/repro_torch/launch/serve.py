@@ -3,9 +3,11 @@
 
 ``python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke --tokens 32
 --device cpu`` runs prompt prefill then autoregressive decode, reporting
-tokens/s.  Without ``--device`` it runs on the CUDA device, and raises
-where there is none.  The recsys models are not ported yet (ROADMAP.md
-queue 1).
+tokens/s; every LM arch of the registry serves, the MoE ones
+(``deepseek-moe-16b``, ``kimi-k2-1t-a32b``) included.  ``--arch dien``
+scores a batch of recsys requests (the serve_p99 shape at ``--batch
+512``).  Without ``--device`` it runs on the CUDA device, and raises where
+there is none.
 
 Mining-as-a-service: ``python -m repro_torch.launch.serve --mine --graph
 rmat:10 --queries tc,diamond,3-mc`` answers each query on the resident
@@ -21,6 +23,7 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_arch
@@ -84,6 +87,53 @@ def serve_lm(arch, smoke: bool, batch: int, prompt_len: int,
     if stats is not None:
         stats.update(prefill_s=prefill_s, decode_s=dt, decode_tokens=toks)
     return torch.cat(out, dim=1)
+
+
+def _on(x, dev: torch.device) -> torch.Tensor:
+    """A tensor or array-like on ``dev`` (an array is copied, so a read-only
+    one serves too)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    return torch.from_numpy(np.array(x)).to(dev)
+
+
+def serve_recsys(arch, smoke: bool, batch: int, seed: int,
+                 device: DeviceSpec = None, batch_data=None,
+                 stats: dict | None = None) -> torch.Tensor:
+    """Score ``batch`` requests with DIEN; returns their ``[batch]`` logits.
+
+    The weights are ``init_params(cfg, torch.Generator(device)
+    .manual_seed(seed))``; the requests are ``recsys_batch(seed, 0, ...)``
+    unless ``batch_data`` (a dict of int arrays or tensors with
+    ``hist_items``, ``hist_cats``, ``target_item`` and ``target_cat``) is
+    given.  ``stats``, when given, receives the scoring wall time (ending
+    in a device sync) and the request count.
+    """
+    from repro_torch.data.pipeline import recsys_batch
+    from repro_torch.models.recsys import dien as DN
+    cfg = arch.smoke if smoke else arch.config
+    dev = resolve_device(device)
+    params = DN.init_params(cfg, torch.Generator(dev).manual_seed(seed),
+                            device=dev)
+    if batch_data is None:
+        b = recsys_batch(seed, 0, batch, cfg.seq_len, cfg.n_items,
+                         cfg.n_cats, device=dev)
+    else:
+        b = {name: _on(batch_data[name], dev)
+             for name in ("hist_items", "hist_cats", "target_item",
+                          "target_cat")}
+        if b["target_item"].shape[0] != batch:
+            raise ValueError(f"batch_data holds {b['target_item'].shape[0]} "
+                             f"requests, not {batch}")
+    _sync(dev)
+    t0 = time.perf_counter()
+    scores = DN.forward(cfg, params, b)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    print(f"[serve] {arch.arch_id}: scored {batch} requests in {dt:.3f}s")
+    if stats is not None:
+        stats.update(serve_s=dt, requests=batch)
+    return scores
 
 
 def serve_mine(args):
@@ -206,8 +256,8 @@ def main(argv=None):
         return serve_lm(arch, args.smoke, args.batch, args.prompt_len,
                         args.tokens, args.seed, device=args.device)
     if arch.family == "recsys":
-        raise NotImplementedError("recsys serving is not ported yet "
-                                  "(ROADMAP.md queue 1, the ML stack)")
+        return serve_recsys(arch, args.smoke, args.batch, args.seed,
+                            device=args.device)
     raise SystemExit("serving applies to lm/recsys archs")
 
 

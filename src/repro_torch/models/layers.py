@@ -36,3 +36,15 @@ def swiglu(x, w1, w3, w2):
     """LLaMA-style gated FFN: (silu(x@w1) * (x@w3)) @ w2."""
     h = F.silu(x @ w1) * (x @ w3)
     return h @ w2
+
+
+def dense_init(d_in: int, d_out: int, dtype: torch.dtype,
+               generator: torch.Generator, device: torch.device,
+               scale: float | None = None) -> torch.Tensor:
+    """A ``[d_in, d_out]`` weight: normal times ``scale`` (default
+    ``d_in ** -0.5``), drawn in f32 from ``generator`` and then cast, as
+    the JAX package's ``dense_init``."""
+    scale = scale if scale is not None else d_in ** -0.5
+    x = torch.randn((d_in, d_out), generator=generator,
+                    device=generator.device)
+    return (x * scale).to(device=device, dtype=dtype)

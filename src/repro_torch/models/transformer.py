@@ -1,5 +1,5 @@
-"""Decoder-only transformer (GQA, qk_norm, RoPE, SwiGLU), the serving half
-of ``repro.models.transformer``.
+"""Decoder-only transformer (GQA, qk_norm, RoPE, SwiGLU, optional MoE), the
+serving half of ``repro.models.transformer``.
 
 Parameters are a plain dict with the JAX package's names and the stacked
 ``[L, ...]`` leading axis, so JAX weights map onto it one to one
@@ -16,19 +16,26 @@ PyTorch, as the JAX package leaves it to XLA.  The cache is updated in
 place: ``decode_step`` writes its keys and values into the cache it is
 given and returns that same dict.
 
-Not ported yet (ROADMAP.md): MoE layers, training (``loss_fn``,
-``loss_fn_chunked``, ``forward_hidden``) and ``prefill_chunked``.
+A MoE layer (``cfg.moe``) runs :func:`repro_torch.models.moe.apply_moe`
+on the layer's ``[B * L, D]`` tokens, so its expert capacity is per call:
+per prompt in ``prefill``, per chunk in ``prefill_chunked``, per step in
+``decode_step``, as in the JAX package.
+
+Not ported yet (ROADMAP.md): training (``loss_fn``, ``loss_fn_chunked``,
+``forward_hidden``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import DeviceSpec, resolve_device
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.models.layers import rmsnorm, rope, swiglu
+from repro_torch.models import moe as moe_lib
+from repro_torch.models.layers import dense_init, rmsnorm, rope, swiglu
 
 ATTN_IMPLS = ("naive", "flash_jnp", "pallas")
 MASK_VALUE = -1e30
@@ -46,7 +53,7 @@ class TransformerConfig:
     d_head: Optional[int] = None          # default d_model // n_heads
     qk_norm: bool = False
     rope_theta: float = 10000.0
-    moe: Optional[Any] = None
+    moe: Optional[moe_lib.MoEConfig] = None
     attn_impl: str = "flash_jnp"
     attn_block_k: int = 512
     dtype: str = "bfloat16"
@@ -56,10 +63,6 @@ class TransformerConfig:
     act_shard: tuple | None = None        # no effect on one device
 
     def __post_init__(self):
-        if self.moe is not None:
-            raise NotImplementedError(
-                f"{self.name}: MoE layers are not ported yet (ROADMAP.md "
-                "queue 1, the ML stack)")
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {self.attn_impl!r} not in "
                              f"{ATTN_IMPLS}")
@@ -74,7 +77,13 @@ class TransformerConfig:
         d, dh = self.d_model, self.head_dim
         attn = d * dh * (self.n_heads + 2 * self.n_kv_heads) + \
             self.n_heads * dh * d
-        per_layer = attn + 3 * d * self.d_ff + 2 * d
+        if self.moe is not None:
+            ffn = d * self.moe.n_routed  # router
+            ffn += 3 * self.moe.n_routed * d * self.moe.d_ff
+            ffn += 3 * self.moe.n_shared * d * self.moe.d_ff
+        else:
+            ffn = 3 * d * self.d_ff
+        per_layer = attn + ffn + 2 * d
         embed = self.vocab * d * (1 if self.tie_embeddings else 2)
         return self.n_layers * per_layer + embed + d
 
@@ -86,7 +95,10 @@ def _dt(cfg: TransformerConfig) -> torch.dtype:
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 device: DeviceSpec = None) -> dict:
     """Random weights as the JAX package draws them (normal times the same
-    scales, ones for the norms), from ``generator``, on ``device``."""
+    scales, ones for the norms), from ``generator``, on ``device``.  A MoE
+    model's ``layers["moe"]`` is a dict of ``[L, ...]`` leaves, as JAX's
+    ``vmap(init_moe)`` gives, drawn layer by layer into the stack (a whole
+    f32 draw of DeepSeek-MoE-16B's experts would take 20.7 GB)."""
     dev = resolve_device(device)
     dt = _dt(cfg)
     d, dh, L = cfg.d_model, cfg.head_dim, cfg.n_layers
@@ -109,18 +121,36 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     if cfg.qk_norm:
         layer["q_norm"] = ones((L, dh))
         layer["k_norm"] = ones((L, dh))
-    layer["w1"] = normal((L, d, cfg.d_ff), d ** -0.5)
-    layer["w3"] = normal((L, d, cfg.d_ff), d ** -0.5)
-    layer["w2"] = normal((L, cfg.d_ff, d), cfg.d_ff ** -0.5)
+    if cfg.moe is None:
+        layer["w1"] = normal((L, d, cfg.d_ff), d ** -0.5)
+        layer["w3"] = normal((L, d, cfg.d_ff), d ** -0.5)
+        layer["w2"] = normal((L, cfg.d_ff, d), cfg.d_ff ** -0.5)
+    else:
+        stack: dict = {}
+        for i in range(L):
+            p = moe_lib.init_moe(d, cfg.moe, dt, generator, dev)
+            for name, w in p.items():
+                if name not in stack:
+                    stack[name] = torch.empty((L,) + tuple(w.shape),
+                                              dtype=w.dtype, device=dev)
+                stack[name][i] = w
+            del p
+        layer["moe"] = stack
     params = {"embed": normal((cfg.vocab, d), 0.02), "ln_f": ones((d,)),
               "layers": layer}
     if not cfg.tie_embeddings:
-        params["unembed"] = normal((d, cfg.vocab), d ** -0.5)
+        params["unembed"] = dense_init(d, cfg.vocab, dt, generator, dev)
     return params
 
 
 def _layer(params, i: int) -> dict:
-    return {name: w[i] for name, w in params["layers"].items()}
+    """Layer ``i``'s weights: a view of each stacked leaf, nested dicts
+    (``moe``) included."""
+    def pick(node):
+        if isinstance(node, dict):
+            return {name: pick(w) for name, w in node.items()}
+        return node[i]
+    return pick(params["layers"])
 
 
 def _unembed(params, x):
@@ -145,11 +175,19 @@ def _qkv(cfg: TransformerConfig, lp, x, positions):
 
 
 def _self_attention(cfg: TransformerConfig, q, k, v):
-    """Causal attention of the sequence on itself: [B, L, Hq * Dh]."""
+    """Causal attention of the sequence on itself: [B, L, Hq * Dh].
+
+    A head dim the kernel lacks (16 in three SMOKE configs) is zero-padded
+    to its next width: zero columns add nothing to a score and give zero
+    output columns, which are cut off."""
     b, _, l, dh = q.shape
+    width = next((w for w in flash_ops.HEAD_DIMS if w >= dh), dh)
+    if width != dh:
+        q, k, v = (F.pad(t, (0, width - dh)) for t in (q, k, v))
     out = flash_ops.flash_attention(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), causal=True)
-    return out.transpose(1, 2).reshape(b, l, cfg.n_heads * dh)
+                                    v.contiguous(), causal=True,
+                                    sm_scale=dh ** -0.5)
+    return out[..., :dh].transpose(1, 2).reshape(b, l, cfg.n_heads * dh)
 
 
 def _attention(cfg: TransformerConfig, lp, x, positions, kv_cache=None,
@@ -185,23 +223,35 @@ def _attention(cfg: TransformerConfig, lp, x, positions, kv_cache=None,
     return out @ lp["wo"], (ck, cv)
 
 
-def _ffn(lp, x):
-    return swiglu(rmsnorm(x, lp["ln_ffn"]), lp["w1"], lp["w3"], lp["w2"])
+def _ffn(cfg: TransformerConfig, lp, x):
+    """The FFN half of a layer on x [B, L, D]: (out, aux), aux the MoE
+    load-balance loss (an f32 scalar) or None for a dense layer.  MoE
+    routes the flattened [B * L, D] tokens."""
+    hn = rmsnorm(x, lp["ln_ffn"])
+    if cfg.moe is None:
+        return swiglu(hn, lp["w1"], lp["w3"], lp["w2"]), None
+    b, l, d = hn.shape
+    f, aux = moe_lib.apply_moe(lp["moe"], hn.reshape(b * l, d), cfg.moe)
+    return f.reshape(b, l, d), aux
 
 
 @torch.inference_mode()
 def forward(cfg: TransformerConfig, params, tokens: torch.Tensor):
-    """tokens: int[B, L] -> (logits [B, L, V], aux_loss), aux 0 for a dense
-    model."""
+    """tokens: int[B, L] -> (logits [B, L, V], aux_loss): the layers' MoE
+    load-balance losses summed, 0 for a dense model."""
     x = params["embed"][tokens]
     positions = torch.arange(tokens.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         h, _ = _attention(cfg, lp, rmsnorm(x, lp["ln_attn"]), positions)
         x = x + h
-        x = x + _ffn(lp, x)
+        f, layer_aux = _ffn(cfg, lp, x)
+        x = x + f
+        if layer_aux is not None:
+            aux = aux + layer_aux
     logits = _unembed(params, rmsnorm(x, params["ln_f"]))
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 # ---------------------------------------------------------------------------
@@ -231,7 +281,7 @@ def prefill(cfg: TransformerConfig, params, tokens: torch.Tensor,
         x = x + _self_attention(cfg, q, k, v) @ lp["wo"]
         ks[i, :, :, :s] = k
         vs[i, :, :, :s] = v
-        x = x + _ffn(lp, x)
+        x = x + _ffn(cfg, lp, x)[0]
     logits = _unembed(params, rmsnorm(x[:, -1], params["ln_f"]))
     return logits, {"k": ks, "v": vs}
 
@@ -265,5 +315,22 @@ def decode_step(cfg: TransformerConfig, params, cache, tokens: torch.Tensor,
                           kv_cache=(cache["k"][i], cache["v"][i]),
                           cache_pos=pos)
         x = x + h
-        x = x + _ffn(lp, x)
+        x = x + _ffn(cfg, lp, x)[0]
     return _unembed(params, rmsnorm(x, params["ln_f"])), cache
+
+
+@torch.inference_mode()
+def prefill_chunked(cfg: TransformerConfig, params, tokens: torch.Tensor,
+                    chunk: int, cache_len: int | None = None):
+    """Sarathi-style chunked prefill: the prompt in ``chunk``-token pieces,
+    each a ``decode_step`` against the cache so far (so a MoE layer's
+    capacity is per chunk).  Returns (last-token logits [B, V], cache)."""
+    b, s = tokens.shape
+    if s % chunk:
+        raise ValueError(f"prompt of {s} tokens is not a multiple of the "
+                         f"chunk {chunk}; pad it")
+    cache = init_cache(cfg, b, cache_len or s, device=tokens.device)
+    for start in range(0, s, chunk):
+        logits, cache = decode_step(cfg, params, cache,
+                                    tokens[:, start:start + chunk], start)
+    return logits[:, -1], cache

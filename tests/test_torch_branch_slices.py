@@ -32,6 +32,16 @@ LANES = 64          # lanes (candidates) per set
 ALL = np.uint32(0xFFFFFFFF)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch CPU ops on one thread: the suite's worker processes would
+    otherwise oversubscribe the cores (``test_torch_mixed.py``)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def sliced_bits(words, emb_cols, u, src_slot, state, conn):
     """The kernel's sliced formula on numpy columns: (bitmap uint32[N],
     the number of slots each lane probed)."""

@@ -784,3 +784,75 @@ def test_packed_reduce_check_equals_the_dense_path(monkeypatch, capsys):
     smoke.packed_reduce_sync_free(None, g, make_fsm_app(3, ms), "cuda")
     assert "no device sync in the whole reduce_domain_sharded(packed=True)" \
         in capsys.readouterr().out
+
+
+def test_moe_checks_keep_layer0_input_and_every_route():
+    """The [moe] phase's helpers on the DeepSeek-MoE SMOKE model: every
+    flash launch checked (head dim 16 padded to 32), the first MoE call's
+    tokens and weights kept, each route call's experts recorded."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import moe
+    smoke = _smoke()
+    arch = get_arch("deepseek-moe-16b")
+    with smoke.first_moe_input(40) as kept, \
+            smoke.recorded_routes() as routes:
+        checks = smoke.lm_checked(arch, {"A": (2, 60, 3)}, smoke=True,
+                                  device="cpu", chunk=512, label="moe")
+    assert checks.launches == {"flash_attention": 2}
+    assert tuple(checks.layer0["A"][0][0].shape) == (2, 4, 60, 32)
+    assert tuple(kept["x"].shape) == (40, 64)
+    assert sorted(kept["params"]) == sorted(
+        ["router", "w1", "w2", "w3", "shared_w1", "shared_w2", "shared_w3"])
+    assert tuple(kept["params"]["w1"].shape) == (8, 64, 32)   # one layer
+    # 2 layers of the prefill (120 tokens) and of 2 decode steps (2 tokens)
+    assert [tuple(r.shape) for r in routes] == [(120, 2)] * 2 + [(2, 2)] * 4
+    assert moe.apply_moe.__name__ == "apply_moe"
+    assert moe.route.__name__ == "route"
+    out = smoke.moe_layer_against_cpu(kept["x"], kept["params"],
+                                      arch.smoke.moe)
+    assert out["dispatch_diff"] == [] and out["y_err"] == 0.0
+    assert out["capacity"] == moe.capacity(40, arch.smoke.moe) == 20
+
+
+def test_route_flips_count_each_differing_expert_set():
+    smoke = _smoke()
+    a = [torch.tensor([[0, 1], [2, 3], [4, 5]]), torch.tensor([[1, 2]])]
+    same = [torch.tensor([[1, 0], [2, 3], [5, 4]]), torch.tensor([[2, 1]])]
+    assert smoke.route_flips(a, same) == 0         # sets, not orders
+    b = [torch.tensor([[0, 1], [2, 4], [4, 5]]), torch.tensor([[1, 3]])]
+    assert smoke.route_flips(a, b) == 2
+    assert smoke.route_flips(a, b[:1]) == 2        # a call only a made
+    assert smoke.route_flips(a, [a[0][:2], a[1]]) == 3     # another shape
+
+
+def test_dispatch_diff_names_each_differing_field():
+    from repro_torch.models import moe
+    smoke = _smoke()
+    cfg = moe.MoEConfig(n_routed=4, top_k=2, d_ff=8, capacity_factor=0.5)
+    g = torch.Generator().manual_seed(0)
+    params = moe.init_moe(16, cfg, torch.float32, g, torch.device("cpu"))
+    x = torch.randn(24, 16, generator=g)
+    r = moe.route(params, x, cfg)
+    assert smoke.dispatch_diff(r, moe.route(params, x, cfg)) == []
+    wrong = r._replace(keep=~r.keep, capacity=r.capacity + 1)
+    assert smoke.dispatch_diff(r, wrong) == ["keep", "capacity"]
+
+
+def test_f32_config_cuts_only_the_depth():
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    smoke = _smoke()
+    arch = get_arch(smoke.MOE_ARCH)
+    cfg = smoke.f32_config(arch, smoke.MOE_F32_LAYERS)
+    assert (cfg.n_layers, cfg.dtype) == (4, "float32")
+    want = dataclasses.replace(arch.config, n_layers=4, dtype="float32")
+    assert cfg == want and cfg.moe == arch.config.moe
+    assert smoke.f32_config(arch).n_layers == 28
+
+
+def test_recsys_helpers_copy_trees_to_the_cpu():
+    smoke = _smoke()
+    tree = {"a": torch.ones(2), "mlp": [{"w": torch.zeros(1)}]}
+    out = smoke.on_cpu(tree)
+    assert isinstance(out["mlp"], list) and out["mlp"][0]["w"].shape == (1,)
+    assert smoke.RECSYS_CPU_CANDIDATES <= 1_000_000

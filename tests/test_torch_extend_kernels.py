@@ -27,6 +27,16 @@ from repro_torch.core.api import resolve_kernel_predicate
 from repro_torch.kernels.extend_fused import ops, ref
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch CPU ops on one thread: the suite's worker processes would
+    otherwise oversubscribe the cores (``test_torch_mixed.py``)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_inputs(g, emb):
     rp = jnp.asarray(g.row_ptr)
     embc = jnp.clip(emb, 0, g.n_vertices - 1).reshape(-1)

@@ -27,6 +27,16 @@ CASES = [
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch CPU ops on one thread: the suite's worker processes would
+    otherwise oversubscribe the cores (``test_torch_mixed.py``)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(b, hq, hkv, lq, lk, d, seed):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((b, hq, lq, d)).astype(np.float32),

@@ -43,6 +43,16 @@ CASES = [("fig2", 3, 0), ("er14l3", 3, 0), ("er14l3", 3, 2),
          ("er100l3", 3, 2)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch CPU ops on one thread: the suite's worker processes would
+    otherwise oversubscribe the cores (``test_torch_mixed.py``)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @functools.lru_cache(maxsize=None)
 def jax_miner(gname, k, min_support):
     """A JAX reference Miner that has run cold (its plan recorded)."""

@@ -32,6 +32,16 @@ GRAPHS = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch CPU ops on one thread: the suite's worker processes would
+    otherwise oversubscribe the cores (``test_torch_mixed.py``)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 

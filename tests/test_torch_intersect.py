@@ -56,6 +56,16 @@ CASE_PATHS = {"grouped": {"bitmap"},
               "malformed": {"empty", "search"}}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch CPU ops on one thread: the suite's worker processes would
+    otherwise oversubscribe the cores (``test_torch_mixed.py``)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @functools.lru_cache(maxsize=None)
 def _case(name):
     """(col_idx, (lo_a, hi_a, lo_b, hi_b), max_deg, n_steps) as numpy."""

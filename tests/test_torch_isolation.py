@@ -62,6 +62,12 @@ def test_port_imports_and_mines_with_jax_blocked():
         "r = repro_torch.launch.mine.main(['--graph', 'clique:6', '--app',\n"
         "                                  '4-cf', '--device', 'cpu'])\n"
         "assert r.count == 15\n"
+        "from repro_torch.configs.registry import get_arch\n"
+        "from repro_torch.launch.serve import serve_lm, serve_recsys\n"
+        "assert serve_lm(get_arch('deepseek-moe-16b'), True, 1, 8, 2, 0,\n"
+        "                device='cpu').shape == (1, 2)\n"
+        "assert serve_recsys(get_arch('dien'), True, 4, 0,\n"
+        "                    device='cpu').shape == (4,)\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
         "               for k in sys.modules if sys.modules[k] is not None)\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}

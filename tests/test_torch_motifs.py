@@ -41,6 +41,16 @@ SYMMETRIC = ("diamond", "4-cycle", "4-clique")
 LCHAIN = dict(edges=[(0, 1), (1, 2)], labels=[0, 1, 2])
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch CPU ops on one thread: the suite's worker processes would
+    otherwise oversubscribe the cores (``test_torch_mixed.py``)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _set(mod_pattern, mod_app, names, **kw):
     return lambda: mod_app([mod_pattern.named(n) for n in names], **kw)
 

@@ -35,6 +35,16 @@ GRAPHS = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch CPU ops on one thread: the suite's worker processes would
+    otherwise oversubscribe the cores (``test_torch_mixed.py``)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @functools.lru_cache(maxsize=None)
 def _graphs(name):
     make_jax, make_port = GRAPHS[name]

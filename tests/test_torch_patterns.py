@@ -27,6 +27,16 @@ from repro_torch.core.plan import plan_app_key
 from repro_torch.graph import generators as TG
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch CPU ops on one thread: the suite's worker processes would
+    otherwise oversubscribe the cores (``test_torch_mixed.py``)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _plain(x):
     """A dataclass tree as plain Python values, so the two packages'
     objects compare field by field."""

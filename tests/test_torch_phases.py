@@ -32,6 +32,16 @@ PACKS = {"bitmap": 4 << 20, "search": 0}
 CAND_CAP, OUT_CAP = 1024, 512
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch CPU ops on one thread: the suite's worker processes would
+    otherwise oversubscribe the cores (``test_torch_mixed.py``)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_buffers(miner, app, inspect: bool):
     src, dst = miner.init_edges()
     n = int(src.shape[0])

@@ -17,6 +17,16 @@ from repro_torch.core.apps.tc import make_tc_app
 VARIANTS = [(True, True), (True, False), (False, True)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch CPU ops on one thread: the suite's worker processes would
+    otherwise oversubscribe the cores (``test_torch_mixed.py``)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _batch(rng, kk, n=2000, n_vertices=12):
     emb = rng.integers(-1, n_vertices, size=(kk, n)).astype(np.int32)
     u = rng.integers(-1, n_vertices, size=n).astype(np.int32)

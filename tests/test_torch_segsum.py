@@ -13,6 +13,16 @@ from repro.kernels.segsum.ref import sorted_segment_sum_ref as jax_ref
 from repro_torch.kernels.segsum import ops, ref
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch CPU ops on one thread: the suite's worker processes would
+    otherwise oversubscribe the cores (``test_torch_mixed.py``)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _port(data_j, seg):
     """The port's sum of the same values as the JAX array ``data_j``."""
     data = torch.from_numpy(np.array(data_j, np.float32)).to(

@@ -51,6 +51,16 @@ from repro_torch.kernels.extend_fused import ops, ref
 N, N_EMB = 40, 200
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch CPU ops on one thread: the suite's worker processes would
+    otherwise oversubscribe the cores (``test_torch_mixed.py``)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_set_pred(bits):
     return lambda *a: bits(*a) != 0
 
