@@ -220,7 +220,33 @@ Phases (any failure raises, and the script exits non-zero):
               memory; batch 512's scores and the first 65,536 candidates'
               against the CPU on the same weights and inputs (1e-4); a
               profile of one batch-512 forward.
-17. segsum  — the segment sum ``sorted_segment_sum`` at ogb_products'
+17. train   — Qwen3-0.6B at full width in bf16 (random weights from seed
+              0, 596,042,752 parameters) through ``launch.train.main``
+              with the JAX package's train policy (4 microbatches, CE in
+              chunks of 512, f32 gradient accumulation, AdamW with
+              ``scan_update``) at train_4k's sequence of 4,096 and a global
+              batch of 16 (train_4k's 256 cut), 3 steps: every
+              ``flash_attention`` launch (one a layer a microbatch in the
+              forward, one more in the remat recompute) held against
+              ``attention_ref``; the kernel timed on the first launch's
+              arguments (the JSON row ``flash_attention:train``) and the
+              backward ``attention_grad`` (PyTorch ops, no TPU
+              counterpart) on the same, against autograd through the plain
+              version in f32, beside autograd through
+              ``scaled_dot_product_attention``; then the counted run: each
+              step's loss (the first within 1.0 of ln(151,936)), wall
+              time, tokens/s and peak, 672 launches of the tensor-core
+              variant and no plain call, and a profile of one
+              microbatch's forward and backward.  Then Qwen3's widths
+              with 2 of its layers in f32, one train step on the card
+              against the CPU (loss within 1e-4, gradients within 1e-3 of
+              their norms, parameters within 1e-5, every FMA-variant
+              launch checked);
+              the SMOKE model killed at step 6, resumed from its
+              checkpoint under the ignored ``build/train_restart/`` and
+              held against a clean run (1e-5); and DIEN's train cell at
+              train_batch's 65,536 requests, 2 steps and a profiled third.
+18. segsum  — the segment sum ``sorted_segment_sum`` at ogb_products'
               scale (``configs/shapes.py``: 61,859,140 rows of 100 f32
               values into 2,449,029 sorted segments, 24.7 GB): sorted,
               unsorted and bf16 launches held against the plain version,
@@ -3154,13 +3180,18 @@ def moe_phase() -> tuple[dict, int, float]:
 RECSYS_CPU_CANDIDATES = 1 << 16     # retrieval scores checked on the CPU
 
 
+def on_device(tree, dev):
+    """A dict (of dicts and lists) of tensors, copied to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: on_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [on_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
 def on_cpu(tree):
     """A dict (of dicts and lists) of tensors, copied to the CPU."""
-    if isinstance(tree, dict):
-        return {k: on_cpu(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [on_cpu(v) for v in tree]
-    return tree.cpu()
+    return on_device(tree, "cpu")
 
 
 def recsys_phase() -> None:
@@ -3203,7 +3234,8 @@ def recsys_phase() -> None:
                 raise AssertionError(f"recsys {shape}: scores "
                                      f"{tuple(scores.shape)}, not finite")
         if shape == "serve_p99":
-            want = DN.forward(cfg, cpu_params, on_cpu(data))
+            with torch.inference_mode():
+                want = DN.forward(cfg, cpu_params, on_cpu(data))
             err = float((scores.cpu() - want).abs().max())
             log(f"[main] recsys serve_p99: the card's scores within "
                 f"{err:.3g} of the CPU's on the same weights and batch "
@@ -3211,8 +3243,9 @@ def recsys_phase() -> None:
             if not err <= 1e-4:
                 raise AssertionError("recsys: the card's scores differ from "
                                      "the CPU's")
-            profile_call(lambda: DN.forward(cfg, params, data),
-                         "recsys serve_p99 forward")
+            profile_call(torch.inference_mode()(
+                lambda: DN.forward(cfg, params, data)),
+                "recsys serve_p99 forward")
         del data, scores
     n = shapes["retrieval_cand"]["n_candidates"]
     g = torch.Generator("cuda").manual_seed(1)
@@ -3242,6 +3275,411 @@ def recsys_phase() -> None:
         raise AssertionError("recsys retrieval_cand: wrong scores")
     del params, cpu_params, cand, scores
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Training: Qwen3-0.6B at full width through launch.train (K8 in the
+# forward, attention_grad in the backward), the optimizer, checkpoints with
+# resume, and DIEN's train cell
+
+TRAIN_ARCH = "qwen3-0.6b"
+# train_4k's sequence; the global batch cut from 256 to 16 (4 microbatches
+# of 4), 3 steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 4096, 3
+TRAIN_F32_LAYERS = 2            # the card-against-CPU f32 step's depth
+TRAIN_F32_TOKENS = 512          # its batch: 1 x 512
+TRAIN_FLASH_ROW = "flash_attention:train"   # K8 on the training path
+DIEN_TRAIN_STEPS = 2
+
+
+def train_args(arch_id: str, steps: int, batch: int, seq: int,
+               *extra: str) -> list[str]:
+    """``launch.train``'s arguments: ``steps`` steps of ``batch`` x
+    ``seq``, every step logged."""
+    return ["--arch", arch_id, "--steps", str(steps), "--batch", str(batch),
+            "--seq", str(seq), "--log-every", "1", *extra]
+
+
+def train_launches(cfg, n_micro: int, steps: int) -> int:
+    """K8 launches of ``steps`` train steps: one a layer a microbatch, and
+    with remat one more, the recompute in the backward."""
+    return cfg.n_layers * n_micro * steps * (1 + cfg.remat)
+
+
+def train_checked(args: list[str], chunk: int = 1 << 25) -> "KernelChecks":
+    """``launch.train.main(args)`` with every ``flash_attention`` launch
+    held against its plain version; keeps the first launch's arguments."""
+    from repro_torch.launch import train
+
+    checks = KernelChecks(chunk, names=tuple(FLASH_REPLACES))
+    checks.keep = True
+    with checks:
+        t0 = time.perf_counter()
+        losses = train.main(args)
+    log(f"[check] train {' '.join(args)}: {len(losses)} steps with every "
+        f"launch checked in {time.perf_counter() - t0:.1f} s, losses "
+        f"{[round(x, 4) for x in losses]}")
+    checks.report("train")
+    return checks
+
+
+def train_main(arch_id: str, args: list[str]) -> tuple[list, int]:
+    """The counted run: ``launch.train.main(args)`` with the counts set to
+    0 just before; each step's loss, wall time, tokens/s and peak printed;
+    the launches equal to ``train_launches``, all of the tensor-core
+    variant, no plain call, every loss finite and the first within 1.0 of
+    ln(vocab).  Returns the per-step records and the launches."""
+    import math
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train
+
+    cell = S.build_cell(arch_id, "train_4k")
+    reset_memory()
+    stats: list = []
+    ops.reset_counts()
+    losses = train.main(args, stats=stats)
+    launches = ops.LAUNCHES["flash_attention"]
+    variants = dict(ops.VARIANT_LAUNCHES)
+    plain = ref.attention_ref.calls
+    smi = nvidia_smi_line()
+    for s in stats:
+        log(f"[main] train {arch_id} step {s['step']}: loss "
+            f"{s['loss']:.4f}, {s['wall_s']:.3f} s, {s['rate']:.0f} "
+            f"tokens/s, peak {s['peak_bytes']} B ({smi})")
+    want = train_launches(cell.cfg, cell.n_micro, len(losses))
+    log(f"[main] train {arch_id}: launches {launches} {variants} (want "
+        f"{want}: {cell.cfg.n_layers} layers x {cell.n_micro} microbatches "
+        f"x {len(losses)} steps x 2 with remat), plain calls {plain}")
+    bound = math.log(cell.cfg.vocab)
+    if not all(math.isfinite(x) for x in losses) or \
+            abs(losses[0] - bound) > 1.0:
+        raise AssertionError(f"train {arch_id}: losses {losses}, the first "
+                             f"not within 1.0 of ln(vocab) = {bound:.2f}")
+    if launches != want or plain or variants != {"tensor_core": want,
+                                                 "fma": 0}:
+        raise AssertionError(f"train {arch_id}: {launches} launches "
+                             f"{variants}, {plain} plain calls")
+    return stats, launches
+
+
+def reset_memory() -> None:
+    """Free the allocator's cached blocks and restart its peak count."""
+    import torch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def profile_train_microbatch(arch_id: str, batch: int, seq: int) -> None:
+    """``profile_call`` over one microbatch's forward and backward of the
+    train cell's loss (fresh weights, step 0's first microbatch), after the
+    counted run has warmed the libraries up: a quarter of a step's device
+    operations, which keeps the profiler's own cost in bounds."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models import transformer as T
+
+    cell = S.build_cell(arch_id, "train_4k")
+    params = cell.param_init(torch.Generator("cuda").manual_seed(0),
+                             device="cuda")
+    data = make_batch(get_arch(arch_id), cell.cfg, 0, batch, seq, 0,
+                      n_micro=cell.n_micro, device="cuda")
+    micro = {k: v[0] for k, v in data.items()}
+    profile_call(lambda: S.loss_and_grads(
+        lambda p, b: T.loss_fn(cell.cfg, p, b), params, micro),
+        f"train {arch_id} microbatch forward and backward, "
+        f"{batch // cell.n_micro} x {seq}")
+    del params, data, micro
+    torch.cuda.empty_cache()
+
+
+def autograd_attention_ref(q, k, v, dout, causal: bool = True,
+                           rows: int | None = None):
+    """``torch.autograd.grad`` through ``attention_ref`` in f32, over
+    pieces of ``rows`` query rows (all at once by default): each piece's
+    output rows depend on its own query rows and every key, so its dq rows
+    are its own and dk, dv sum over the pieces."""
+    import torch
+    from repro_torch.kernels.flash_attention import ref
+
+    qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+    lq = q.shape[2]
+    rows = rows or lq
+    dq, dk, dv = (torch.zeros_like(t) for t in (qf, kf, vf))
+    for lo in range(0, lq, rows):
+        hi = min(lo + rows, lq)
+        out = ref.attention_ref(qf, kf, vf, causal=causal, q_rows=(lo, hi))
+        gq, gk, gv = torch.autograd.grad(
+            out, (qf, kf, vf), dout[:, :, lo:hi].float())
+        dq[:, :, lo:hi] = gq[:, :, lo:hi]
+        dk += gk
+        dv += gv
+        del out, gq, gk, gv
+    return dq, dk, dv
+
+
+def time_attention_grad(a, kw) -> None:
+    """``attention_grad`` on one K8 launch's arguments (its output from the
+    kernel, a random ``dout``): against autograd through the plain version
+    in f32 (in pieces of 1,024 query rows), each gradient within 1e-2 of
+    its largest value (bf16 inputs and outputs); its CUDA-event time
+    beside that of the reference and of ``torch.autograd`` through
+    ``scaled_dot_product_attention`` on the same inputs, and its bound:
+    10 d flops a (query, key) pair (the scores recomputed, dV, dP, dQ,
+    dK) at the bf16 tensor-core rate, or q, k, v, out and dout read and
+    dq, dk, dv written once at the memory rate."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import grad, ops
+
+    q, k, v = a
+    causal = kw.get("causal", True)
+    b, hq, lq, d = q.shape
+    lk = k.shape[2]
+    out = ops.flash_attention(q, k, v, **kw)
+    dout = torch.randn(out.shape, device=q.device,
+                       generator=torch.Generator(q.device).manual_seed(0)
+                       ).to(q.dtype)
+    ms, got = cuda_ms(lambda: grad.attention_grad(
+        q, k, v, out, dout, causal, kw.get("sm_scale")), reps=3)
+    plain_ms, want = cuda_ms(lambda: autograd_attention_ref(
+        q, k, v, dout, causal, rows=1024), reps=1)
+    errs = []
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err = float((g.float() - w).abs().max())
+        scale = float(w.abs().max())
+        errs.append(err)
+        if not err <= 1e-2 * scale:
+            raise AssertionError(f"attention_grad {name}: max_abs_err "
+                                 f"{err:.3g}, largest {scale:.3g}")
+    del got, want
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                             enable_gqa=True)
+    lib_ms, _ = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (qs, ks, vs), dout, retain_graph=True), reps=3)
+    del lib_out
+    flops = 10 * b * hq * d * attention_pairs(lq, lk, causal)
+    # q, out and dout read and dq written; k and v read, dk and dv written
+    nbytes = (4 * q.numel() + 2 * (k.numel() + v.numel())) * q.element_size()
+    bound_s = {"operations": flops / BF16_FLOPS_PER_S,
+               "bytes": nbytes / HBM_BYTES_PER_S}
+    bound_by = max(bound_s, key=bound_s.get)
+    bound_ms = bound_s[bound_by] * 1e3
+    log(f"[timing] attention_grad (q {tuple(q.shape)}, k {tuple(k.shape)}, "
+        f"{q.dtype}; PyTorch ops, f32 products, no TPU counterpart): "
+        f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+        f"{bound_ms / ms:.3f} of the bound); autograd through the "
+        f"plain version {plain_ms:.3f} ms; torch.autograd through "
+        f"scaled_dot_product_attention {lib_ms:.3f} ms; bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({flops} flops, {nbytes} "
+        f"B); max_abs_err dq {errs[0]:.3g}, dk {errs[1]:.3g}, dv "
+        f"{errs[2]:.3g} ({nvidia_smi_line()})")
+    torch.cuda.empty_cache()
+
+
+def train_f32_against_cpu(n_layers: int = TRAIN_F32_LAYERS,
+                          tokens: int = TRAIN_F32_TOKENS) -> None:
+    """Qwen3-0.6B's widths in f32 (TF32 off) with its first ``n_layers``
+    layers, the train cell's step with one microbatch (``loss_and_grads``,
+    then ``apply_updates`` under Qwen3's ``OptConfig``) on a 1 x ``tokens``
+    batch, CE in one chunk of 512, on the card and on the CPU from the same
+    weights, optimizer state and batch: the loss within 1e-4, every
+    gradient within 1e-3 of its norm, the parameters after the AdamW step
+    within 1e-5; and the card's optimizer held on its own, since at step
+    0 the whole update is about lr = 3e-6 an element: the update ``new_p -
+    p`` it makes from the card's gradients within 1e-3 of its norm, leaf
+    by leaf, of the update the CPU makes from those same gradients.  Every
+    K8 launch (the FMA variant) held against its plain version."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import apply_updates, init_opt_state
+    from repro_torch.train.tree import leaves_with_paths
+
+    cfg = dataclasses.replace(f32_config(get_arch(TRAIN_ARCH), n_layers),
+                              ce_chunk=512)
+    opt_cfg = S.opt_config_for(TRAIN_ARCH)
+    loss_fn = (lambda p, b: T.loss_fn(cfg, p, b))
+    cpu = torch.device("cpu")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), device=cpu)
+    batch = lm_batch(0, 0, 1, tokens, cfg.vocab, device=cpu)
+    out = {}
+    checks = KernelChecks(names=tuple(FLASH_REPLACES))
+    for dev in (torch.device("cuda"), cpu):
+        p = on_device(params, dev)
+        b = on_device(batch, dev)
+        t0 = time.perf_counter()
+        with (checks if dev.type == "cuda" else contextlib.nullcontext()):
+            loss, grads = S.loss_and_grads(loss_fn, p, b)
+        new_p, _ = apply_updates(p, grads, init_opt_state(p, opt_cfg),
+                                 opt_cfg)
+        out[dev.type] = (float(loss), on_device(grads, cpu),
+                         on_device(new_p, cpu))
+        log(f"[main] train f32 {dev.type}: loss {float(loss):.6f} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        del p, b, grads, new_p
+    checks.report("train f32")
+    (l_gpu, g_gpu, p_gpu), (l_cpu, g_cpu, p_cpu) = out["cuda"], out["cpu"]
+    # the CPU's update from the card's gradients
+    p_opt, _ = apply_updates(params, g_gpu, init_opt_state(params, opt_cfg),
+                             opt_cfg)
+
+    def rel(xs, ys):
+        return max(float((x - y).norm() / y.norm().clamp_min(1e-30))
+                   for (_, x), (_, y) in zip(leaves_with_paths(xs),
+                                             leaves_with_paths(ys)))
+
+    g_rel = rel(g_gpu, g_cpu)
+    p_err = max(float((x - y).abs().max())
+                for (_, x), (_, y) in zip(leaves_with_paths(p_gpu),
+                                          leaves_with_paths(p_cpu)))
+    flat = dict(leaves_with_paths(params))
+
+    def delta(new):
+        return {k: v - flat[k] for k, v in leaves_with_paths(new)}
+
+    u_opt = rel(delta(p_gpu), delta(p_opt))
+    u_cpu = rel(delta(p_gpu), delta(p_cpu))
+    u_max = max(float(u.abs().max()) for u in delta(p_cpu).values())
+    want = train_launches(cfg, 1, 1)
+    log(f"[main] train f32 {TRAIN_ARCH} ({n_layers} of "
+        f"{get_arch(TRAIN_ARCH).config.n_layers} layers, full width, 1 x "
+        f"{tokens}), cuda against cpu: loss {l_gpu:.6f} / {l_cpu:.6f}, "
+        f"gradients within {g_rel:.3g} of their norms, parameters after the "
+        f"step within {p_err:.3g} (largest update {u_max:.3g}); the card's "
+        f"update within {u_opt:.3g} of its norm of the CPU's from the same "
+        f"gradients ({u_cpu:.3g} of the CPU's own step's, not held: a "
+        f"gradient near 0 may take the other sign); K8 launches "
+        f"{checks.launches} (want {want})")
+    if not (abs(l_gpu - l_cpu) <= 1e-4 and g_rel <= 1e-3 and p_err <= 1e-5
+            and u_opt <= 1e-3):
+        raise AssertionError("train f32: the card's step differs from the "
+                             "CPU's")
+    if checks.launches["flash_attention"] != want:
+        raise AssertionError(f"train f32: {checks.launches} checked "
+                             f"launches, not {want}")
+    torch.cuda.empty_cache()
+
+
+def train_restart(out_dir: Path) -> None:
+    """``launch.train`` on the SMOKE config on the card: killed after step
+    6 (exit 42), resumed from its step-6 checkpoint, and a clean run; the
+    resumed losses within 1e-5 of the clean run's (the card's order of
+    addition may differ from run to run), the largest difference
+    printed."""
+    import shutil
+    from repro_torch.launch import train
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    args = ["--arch", TRAIN_ARCH, "--smoke", "--steps", "10", "--batch",
+            "4", "--seq", "16", "--log-every", "100"]
+    ckpt = ["--ckpt-dir", str(out_dir), "--ckpt-every", "3"]
+    try:
+        train.main(args + ckpt + ["--fail-at", "6"])
+    except SystemExit as exc:
+        if exc.code != 42:
+            raise
+    else:
+        raise AssertionError("train --fail-at 6 did not stop")
+    resumed = train.main(args + ckpt)
+    clean = train.main(args)
+    diff = max(abs(a - b) for a, b in zip(resumed, clean[-len(resumed):]))
+    log(f"[main] train restart on the card: killed at step 6, resumed for "
+        f"{len(resumed)} steps, largest loss difference to the clean run "
+        f"{diff:.3g} (losses {[round(x, 6) for x in resumed]})")
+    if len(resumed) != 4 or not diff <= 1e-5:
+        raise AssertionError("train restart: the resumed run differs from "
+                             "the clean one")
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def dien_train() -> None:
+    """DIEN's train cell through ``launch.train`` at train_batch's 65,536
+    requests for ``DIEN_TRAIN_STEPS`` steps (full config, f32): each
+    step's loss, wall time and peak; then a profile of one more step."""
+    import math
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import recsys_batch
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train
+    from repro_torch.train.optimizer import init_opt_state
+
+    arch = get_arch("dien")
+    batch = arch.shapes["train_batch"]["batch"]
+    reset_memory()
+    stats: list = []
+    losses = train.main(["--arch", "dien", "--steps", str(DIEN_TRAIN_STEPS),
+                         "--batch", str(batch), "--log-every", "1"],
+                        stats=stats)
+    smi = nvidia_smi_line()
+    for s in stats:
+        log(f"[main] train dien step {s['step']} (batch {batch}): loss "
+            f"{s['loss']:.4f}, {s['wall_s']:.3f} s, {s['rate']:.0f} "
+            f"requests/s, peak {s['peak_bytes']} B ({smi})")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train dien: losses {losses}")
+    cell = S.build_cell("dien", "train_batch")
+    cfg = cell.cfg
+    params = cell.param_init(torch.Generator("cuda").manual_seed(0),
+                             device="cuda")
+    state = init_opt_state(params, cell.opt_cfg)
+    data = recsys_batch(0, 0, batch, cfg.seq_len, cfg.n_items, cfg.n_cats,
+                        device="cuda")
+    cell.fn(params, state, data)
+    profile_call(lambda: cell.fn(params, state, data),
+                 f"train dien step, batch {batch}")
+    del params, state, data
+    torch.cuda.empty_cache()
+
+
+def train_phase() -> tuple[dict, int, float]:
+    """The [train] phase: Qwen3-0.6B at full width in bf16 through
+    ``launch.train.main`` (train_4k's sequence of 4,096, a global batch of
+    16 in 4 microbatches, 3 steps) with every K8 launch checked; K8 and
+    ``attention_grad`` timed on the first launch's arguments; the counted
+    run; then the f32 step on the card against the CPU, the restart on the
+    card and DIEN's train cell.  Returns K8's timing row on the training
+    path, its counted launches and the checks' largest error."""
+    import torch
+    from repro_torch.launch import steps as S
+
+    cell = S.build_cell(TRAIN_ARCH, "train_4k")
+    cfg = cell.cfg
+    n = cfg.param_count()
+    log(f"[train] {TRAIN_ARCH}: {n} parameters ({2 * n} B in bf16; f32 m, "
+        f"v and gradient accumulators {12 * n} B), {cfg.n_layers} layers, "
+        f"d {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; policy: "
+        f"{cell.n_micro} microbatches, CE chunks of {cfg.ce_chunk}, f32 "
+        f"accumulation, {cell.opt_cfg}; batch {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"(train_4k's global batch 256 cut to {TRAIN_BATCH}), "
+        f"{TRAIN_STEPS} steps")
+    args = train_args(TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ)
+    checks = train_checked(args)
+    want = train_launches(cfg, cell.n_micro, TRAIN_STEPS)
+    if checks.launches["flash_attention"] != want:
+        raise AssertionError(f"train: {checks.launches} checked launches, "
+                             f"not {want}")
+    a, kw = checks.kept.pop("flash_attention")
+    a = tuple(t.detach() for t in a)      # out of the step's graph
+    log(f"[timing] train {TRAIN_ARCH} layer 0, microbatch 0 "
+        f"({nvidia_smi_line()}):")
+    row = time_flash(a, kw)
+    time_attention_grad(a, kw)
+    del a, kw
+    torch.cuda.empty_cache()
+    _, launches = train_main(TRAIN_ARCH, args)
+    profile_train_microbatch(TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ)
+    train_f32_against_cpu()
+    train_restart(ROOT / "build" / "train_restart")
+    dien_train()
+    return row, launches, checks.err["flash_attention"]
 
 
 # ---------------------------------------------------------------------------
@@ -3582,6 +4020,15 @@ def main() -> int:
     recsys_phase()
     log(f"[recsys] phase {time.perf_counter() - t_phase:.1f} s")
 
+    # training: Qwen3-0.6B at full width through launch.train, K8 in every
+    # layer's forward and remat recompute, then the f32 step against the
+    # CPU, the restart and DIEN's train cell
+    t_phase = time.perf_counter()
+    timing[TRAIN_FLASH_ROW], launches[TRAIN_FLASH_ROW], train_err = \
+        train_phase()
+    launches["flash_attention"] += launches[TRAIN_FLASH_ROW]
+    log(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
+
     t_phase = time.perf_counter()
     timing["sorted_segment_sum"], launches["sorted_segment_sum"], seg_err = \
         segsum_phase()
@@ -3590,8 +4037,9 @@ def main() -> int:
     kernels = []
     errs = {**checks16.err, **checks15.err, **checks_tc.err, **checks_1p.err,
             **checks_lm.err, "sorted_segment_sum": seg_err,
-            MOE_FLASH_ROW: moe_err}
-    errs["flash_attention"] = max(errs["flash_attention"], moe_err)
+            MOE_FLASH_ROW: moe_err, TRAIN_FLASH_ROW: train_err}
+    errs["flash_attention"] = max(errs["flash_attention"], moe_err,
+                                  train_err)
     errs[K3_CF_ROW] = errs["extend_candidates"]
     # the K3 row at 4-CF's level 3 counts the launches at its shape
     if sum(K3_SHAPES.values()) != launches["extend_candidates"]:
@@ -3609,6 +4057,7 @@ def main() -> int:
                            **MC_REPLACES, **MIXED_REPLACES,
                            **INTERSECT_REPLACES, **FLASH_REPLACES,
                            MOE_FLASH_ROW: FLASH_REPLACES["flash_attention"],
+                           TRAIN_FLASH_ROW: FLASH_REPLACES["flash_attention"],
                            **SEGSUM_REPLACES}.items():
         t = timing[name]
         module = wrapper_module(name.split(":")[0])

@@ -10,10 +10,13 @@ from repro_torch.core.plan import (HostCapPolicy, MiningExecutor, MiningPlan,
                                    transfer_caps)
 from repro_torch.core.phases import (PhaseBackend, available_backends,
                                      get_backend, register_backend)
-from repro_torch.core.patterns import (Pattern, compile_pattern,
+from repro_torch.core.patterns import (GraphStats, Pattern, compile_pattern,
                                        compile_pattern_set, graph_stats,
-                                       motif_patterns)
-from repro_torch.core.apps import (make_cf_app, make_fsm_app, make_mc_app,
+                                       motif_patterns, n_connected_patterns,
+                                       named_pattern_set, pattern_names,
+                                       pattern_set_names)
+from repro_torch.core.apps import (make_cf_app, make_cf_app_compiled,
+                                   make_fsm_app, make_mc_app,
                                    make_mc_set_app, make_tc_app,
                                    pattern_app, pattern_set_app,
                                    triangle_count_fused)

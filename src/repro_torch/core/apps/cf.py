@@ -63,3 +63,14 @@ def make_cf_app(k: int, use_dag: bool = True,
                      use_dag=use_dag, to_extend=to_extend, to_add=to_add,
                      to_add_spec=None if None in specs else specs,
                      plan_key="" if eager_prune else "no-eager-prune")
+
+
+def make_cf_app_compiled(k: int) -> MiningApp:
+    """k-clique through the pattern compiler instead of the hand-written
+    rules: ``pattern_app(Pattern.clique(k))``, whose symmetry-breaking
+    chain ``v0 < v1 < ... < v_{k-1}`` plays the role of the DAG
+    orientation.  It counts every clique once, as :func:`make_cf_app`."""
+    # through psm's names: this module's hooks call ctx.is_connected, and
+    # the contract linter would take Pattern's host method for it
+    from repro_torch.core.apps import psm
+    return psm.pattern_app(psm.Pattern.clique(k))

@@ -100,13 +100,14 @@ class _PhaseOps:
     """
 
     def __init__(self, ctx: GraphCtx, app: MiningApp, backend,
-                 fuse_filter: bool = True):
+                 fuse_filter: bool = True, materialize_fn=None):
         if app.kind == "edge" and app.to_add_vertex_mask is not None:
             vmask = app.to_add_vertex_mask(ctx)
             app = dataclasses.replace(app,
                                       to_add_vertex_mask=lambda _ctx: vmask)
         self.ctx, self.app, self.backend = ctx, app, backend
         self.fuse_filter = fuse_filter
+        self.materialize = materialize_fn or materialize
 
     def inspect(self, emb, n, st, *, cand_cap):
         return self.backend.inspect_vertex(self.ctx, self.app, emb, n, st,
@@ -181,6 +182,7 @@ class _TracedOps:
 
     def __init__(self, ops: _PhaseOps):
         self.ctx, self.app, self.backend = ops.ctx, ops.app, ops.backend
+        self.materialize = ops.materialize
         for attr, name in self._SPANS.items():
             setattr(self, attr, _obs_op(name, ops.backend.name,
                                         ops.ctx.device, getattr(ops, attr)))
@@ -192,7 +194,7 @@ class _VertexPipeline:
     def __init__(self, ops: _PhaseOps, src, dst, n0):
         self.ops = ops
         self.levels = init_level0_vertex(src, dst, n0)
-        self.emb = materialize(self.levels)
+        self.emb = ops.materialize(self.levels)
         self.n = self.levels[0].n
         app = ops.app
         self.state = (app.init_state(ops.ctx, self.emb, self.n)
@@ -475,14 +477,16 @@ class Miner:
     ``pack_max_bytes``; ``relabel=True`` (or an order name) relabels the
     graph by degree before the DAG orientation, and then, unless
     ``pack_core`` says otherwise, packs the square core.  Results are
-    unchanged by all of them.
+    unchanged by all of them.  ``materialize_fn`` replaces
+    :func:`~repro_torch.core.embedding_list.materialize`, which turns the
+    level-0 worklist into the vertex frontier's ``[n, k]`` matrix.
     """
 
     def __init__(self, graph: CSRGraph, app: MiningApp,
                  search: str = "binary", fuse_filter: bool = True,
                  backend: BackendSpec = None, pack_max_bytes: int = 4 << 20,
                  pack_partial: bool = False, relabel: bool | str = False,
-                 pack_core: Optional[bool] = None,
+                 pack_core: Optional[bool] = None, materialize_fn=None,
                  device: DeviceSpec = None):
         self.device = resolve_device(device)
         self.app = app
@@ -507,7 +511,8 @@ class Miner:
                             pack_partial=pack_partial, pack_core=pack_core)
         self.fuse_filter = fuse_filter
         self.ops = _PhaseOps(self.ctx, app, self.backend,
-                             fuse_filter=fuse_filter)
+                             fuse_filter=fuse_filter,
+                             materialize_fn=materialize_fn)
         self._host_ops = _TracedOps(self.ops)
         self._executors: dict[int, MiningExecutor] = {}
         self._digest: Optional[str] = None

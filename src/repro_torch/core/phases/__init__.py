@@ -26,13 +26,21 @@ BackendSpec = Union[str, PhaseBackend, None]
 GRID_CONTRACTS = ("any", "sequential", "concurrent")
 
 
-def register_backend(name: str,
-                     factory: Callable[[], PhaseBackend]) -> None:
-    """Register a backend factory under ``name`` (overwrites)."""
-    gc = getattr(factory, "grid_contract", None)
-    if isinstance(factory, type) and gc not in GRID_CONTRACTS:
+def _check_grid_contract(name: str, owner) -> None:
+    gc = getattr(owner, "grid_contract", None)
+    if gc not in GRID_CONTRACTS:
         raise ValueError(f"backend {name!r} declares grid_contract={gc!r}; "
                          f"expected one of {list(GRID_CONTRACTS)}")
+
+
+def register_backend(name: str,
+                     factory: Callable[[], PhaseBackend]) -> None:
+    """Register a backend factory under ``name`` (overwrites).  A class is
+    checked here; any other factory (a lambda, a partial) is checked on
+    the instance it builds, the first time ``get_backend`` resolves the
+    name."""
+    if isinstance(factory, type):
+        _check_grid_contract(name, factory)
     _REGISTRY[name] = factory
     _INSTANCES.pop(name, None)
 
@@ -52,7 +60,9 @@ def get_backend(spec: BackendSpec = None) -> PhaseBackend:
         raise KeyError(f"unknown phase backend {spec!r}; "
                        f"available: {available_backends()}")
     if spec not in _INSTANCES:
-        _INSTANCES[spec] = _REGISTRY[spec]()
+        inst = _REGISTRY[spec]()
+        _check_grid_contract(spec, inst)
+        _INSTANCES[spec] = inst
     return _INSTANCES[spec]
 
 

@@ -562,7 +562,8 @@ def _estimate_plan(miner, cap0, sample_size, safety_factor, seed
         filter_caps=((SAMPLE_OUT_CAP,) * (n_levels + 1)
                      if needs_filter else ()))
     ops = E._PhaseOps(ctx, samp_app, miner.backend,
-                      fuse_filter=miner.fuse_filter)
+                      fuse_filter=miner.fuse_filter,
+                      materialize_fn=miner.ops.materialize)
     sel = torch.from_numpy(idx).to(dev)
     n = torch.tensor(n_sample, dtype=torch.int32, device=dev)
     if app.kind == "edge":

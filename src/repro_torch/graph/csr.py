@@ -260,14 +260,19 @@ def build_csr(n_vertices: int, src: np.ndarray, dst: np.ndarray,
 
 def from_edge_list(edges, n_vertices: Optional[int] = None,
                    labels: Optional[np.ndarray] = None,
+                   symmetrize: bool = True,
                    device: DeviceSpec = None) -> CSRGraph:
-    """Symmetric, loop-free, deduplicated CSR graph from (u, v) pairs."""
+    """Loop-free, deduplicated CSR graph from (u, v) pairs, symmetric
+    unless ``symmetrize=False`` (then each pair is one directed edge)."""
     edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
     u, v = edges[:, 0], edges[:, 1]
     keep = u != v
     u, v = u[keep], v[keep]
-    uu = np.concatenate([u, v])
-    vv = np.concatenate([v, u])
+    if symmetrize:
+        uu = np.concatenate([u, v])
+        vv = np.concatenate([v, u])
+    else:
+        uu, vv = u, v
     if n_vertices is None:
         n_vertices = (int(max(uu.max(initial=-1), vv.max(initial=-1)) + 1)
                       if uu.size else 0)

@@ -46,6 +46,19 @@ def clique(n: int, device: DeviceSpec = None) -> CSRGraph:
     return from_edge_list(np.stack(iu, axis=1), n_vertices=n, device=device)
 
 
+def cycle(n: int, device: DeviceSpec = None) -> CSRGraph:
+    u = np.arange(n, dtype=np.int64)
+    return from_edge_list(np.stack([u, (u + 1) % n], axis=1), n_vertices=n,
+                          device=device)
+
+
+def star(n: int, device: DeviceSpec = None) -> CSRGraph:
+    """Star with center 0 and n-1 leaves."""
+    edges = np.stack([np.zeros(n - 1, dtype=np.int64),
+                      np.arange(1, n, dtype=np.int64)], axis=1)
+    return from_edge_list(edges, n_vertices=n, device=device)
+
+
 def paper_fig2_graph(device: DeviceSpec = None) -> CSRGraph:
     """The labeled 5-vertex example graph of the paper's Fig. 2."""
     edges = [(0, 2), (0, 3), (1, 2), (1, 3), (2, 3), (2, 4), (3, 4)]

@@ -8,7 +8,8 @@ schema, vertex plans and FSM's edge plans with their filter capacities
 alike, so a plan recorded by the JAX executor replays in the port and
 back.  For the models, ``transformer_params_from_numpy`` (dense and MoE)
 and ``dien_params_from_numpy`` take the JAX parameter tree as numpy
-arrays, bf16 leaves bit for bit.  Nothing here
+arrays, bf16 leaves bit for bit, and ``opt_state_from_numpy`` the JAX
+optimizer state beside it.  Nothing here
 imports the JAX package: the exchange is numpy arrays and JSON text.
 """
 from __future__ import annotations
@@ -74,6 +75,15 @@ def transformer_params_from_numpy(tree, device: DeviceSpec = None) -> dict:
 def dien_params_from_numpy(tree, device: DeviceSpec = None) -> dict:
     """The port's DIEN parameters from the JAX ones as numpy arrays, with
     the same names, shapes and dtypes; ``mlp`` stays a list of layers."""
+    return _convert(tree, resolve_device(device))
+
+
+def opt_state_from_numpy(tree, device: DeviceSpec = None) -> dict:
+    """The port's optimizer state (``repro_torch.train.optimizer``) from
+    the JAX one as numpy arrays: ``{"m", "v", "step"}`` with the same
+    names, shapes and dtypes, factored ``{"vr", "vc"}`` leaves and a
+    scalar ``m`` (``beta1 == 0``) included, ``step`` a 0-d int32
+    tensor."""
     return _convert(tree, resolve_device(device))
 
 

@@ -97,6 +97,7 @@ def _on(x, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(x)).to(dev)
 
 
+@torch.inference_mode()
 def serve_recsys(arch, smoke: bool, batch: int, seed: int,
                  device: DeviceSpec = None, batch_data=None,
                  stats: dict | None = None) -> torch.Tensor:

@@ -48,3 +48,18 @@ def dense_init(d_in: int, d_out: int, dtype: torch.dtype,
     x = torch.randn((d_in, d_out), generator=generator,
                     device=generator.device)
     return (x * scale).to(device=device, dtype=dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token-level CE in f32: logsumexp minus the gold logit.
+    logits: [..., V]; labels: int[...]; ``mask`` (0/1 over the tokens)
+    averages over the tokens it keeps."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)

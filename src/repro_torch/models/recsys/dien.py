@@ -4,12 +4,12 @@ half of ``repro.models.recsys.dien``.
 Interest extractor: a GRU over the user's behaviour sequence (item and
 category embeddings).  Interest evolution: AUGRU, a GRU whose update gate
 is scaled by the attention score of each extractor state against the
-target item.  JAX's ``lax.scan`` over the sequence is a Python loop here,
-run under ``torch.inference_mode()``; f32 products follow torch's default
-(TF32 off).  ``score_candidates`` scores one user against N candidates
-with the first MLP layer factored, as the JAX package does.
-
-Not ported yet (ROADMAP.md): ``loss_fn``, with the training slice.
+target item.  JAX's ``lax.scan`` over the sequence is a Python loop here;
+f32 products follow torch's default (TF32 off).  ``user_state``,
+``forward`` and ``loss_fn`` (the click BCE) carry gradients;
+``score_candidates`` scores one user against N candidates with the first
+MLP layer factored, as the JAX package does, under
+``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -98,18 +98,24 @@ def _behavior_embed(params, items, cats):
 
 def _extract(params, eb, d_h: int, states: bool):
     """The extractor GRU over eb [B, T, d_b] from zeros: its last state
-    [B, d_h] and, with ``states``, every state [B, T, d_h]."""
+    [B, d_h] and, with ``states``, every state [B, T, d_h] (written in
+    place, or stacked while grad is enabled)."""
     b, t, _ = eb.shape
     h = eb.new_zeros((b, d_h))
-    hs = eb.new_empty((b, t, d_h)) if states else None
+    grad = torch.is_grad_enabled()
+    hs = eb.new_empty((b, t, d_h)) if states and not grad else None
+    kept = []
     for i in range(t):
         h = _gru_cell(params["gru"], eb[:, i], h)
-        if states:
+        if states and grad:
+            kept.append(h)
+        elif states:
             hs[:, i] = h
+    if kept:
+        hs = torch.stack(kept, dim=1)
     return h, hs
 
 
-@torch.inference_mode()
 def user_state(cfg: DIENConfig, params, batch):
     """Extractor GRU then evolution AUGRU: ([B, d_h + d_b] state, the
     target's [B, d_b] embedding).
@@ -138,11 +144,19 @@ def _mlp(layers, x):
     return x[:, 0]
 
 
-@torch.inference_mode()
 def forward(cfg: DIENConfig, params, batch) -> torch.Tensor:
     """The CTR logit of each request: [B]."""
     state, tgt = user_state(cfg, params, batch)
     return _mlp(params["mlp"], torch.cat([state, tgt], dim=-1))
+
+
+def loss_fn(cfg: DIENConfig, params, batch) -> torch.Tensor:
+    """Mean BCE of the logits against ``batch["label"]``, in the stable
+    form max(x, 0) - x y + log1p(exp(-|x|))."""
+    logit = forward(cfg, params, batch)
+    y = batch["label"].to(torch.float32)
+    return torch.mean(torch.clamp_min(logit, 0) - logit * y
+                      + torch.log1p(torch.exp(-torch.abs(logit))))
 
 
 @torch.inference_mode()

@@ -1,18 +1,26 @@
-"""Decoder-only transformer (GQA, qk_norm, RoPE, SwiGLU, optional MoE), the
-serving half of ``repro.models.transformer``.
+"""Decoder-only transformer (GQA, qk_norm, RoPE, SwiGLU, optional MoE)
+(counterpart of ``repro.models.transformer``).
 
 Parameters are a plain dict with the JAX package's names and the stacked
 ``[L, ...]`` leading axis, so JAX weights map onto it one to one
 (``repro_torch.interop.transformer_params_from_numpy``).  The JAX
-``lax.scan`` over layers is a Python loop here, run under
-``torch.inference_mode()``.
+``lax.scan`` over layers is a Python loop here over views of the stacked
+leaves, unbound once a call (a view selected per layer would write a
+full-size zero gradient per layer in the backward).  The serving half
+(``prefill``, ``decode_step``, ``prefill_chunked``) runs under
+``torch.inference_mode()``; ``forward``, ``forward_hidden``, ``loss_fn``
+and ``loss_fn_chunked`` carry gradients.  With ``cfg.remat``, while grad
+is enabled, each layer runs under ``torch.utils.checkpoint`` (JAX's
+``jax.checkpoint``) and each CE chunk of ``loss_fn_chunked`` too, so the
+backward holds one chunk's ``[B, chunk, V]`` logits at a time.
 
 Attention without a cache (``forward``, ``prefill``) goes through
-:func:`repro_torch.kernels.flash_attention.ops.flash_attention` for every
-``attn_impl``: the JAX package's three impls compute one function, and the
-wrapper runs the CUDA kernel on a CUDA tensor and its plain version on a
-CPU tensor.  Attention against the KV cache (``decode_step``) is plain
-PyTorch, as the JAX package leaves it to XLA.  The cache is updated in
+:func:`repro_torch.kernels.flash_attention.grad.flash_attention` for every
+``attn_impl``: the JAX package's three impls compute one function.  Its
+forward is the wrapper ``ops.flash_attention``, which runs the CUDA kernel
+on a CUDA tensor and its plain version on a CPU tensor; its backward is
+``grad.attention_grad``.  Attention against the KV cache (``decode_step``)
+is plain PyTorch, as the JAX package leaves it to XLA.  The cache is updated in
 place: ``decode_step`` writes its keys and values into the cache it is
 given and returns that same dict.
 
@@ -21,8 +29,6 @@ on the layer's ``[B * L, D]`` tokens, so its expert capacity is per call:
 per prompt in ``prefill``, per chunk in ``prefill_chunked``, per step in
 ``decode_step``, as in the JAX package.
 
-Not ported yet (ROADMAP.md): training (``loss_fn``, ``loss_fn_chunked``,
-``forward_hidden``).
 """
 from __future__ import annotations
 
@@ -31,11 +37,14 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceSpec, resolve_device
+from repro_torch.kernels.flash_attention import grad as flash_grad
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.layers import dense_init, rmsnorm, rope, swiglu
+from repro_torch.models.layers import (cross_entropy_loss, dense_init,
+                                       rmsnorm, rope, swiglu)
 
 ATTN_IMPLS = ("naive", "flash_jnp", "pallas")
 MASK_VALUE = -1e30
@@ -57,7 +66,7 @@ class TransformerConfig:
     attn_impl: str = "flash_jnp"
     attn_block_k: int = 512
     dtype: str = "bfloat16"
-    remat: bool = True                    # no effect in inference
+    remat: bool = True                    # checkpoint layers under grad
     tie_embeddings: bool = True
     ce_chunk: int = 0
     act_shard: tuple | None = None        # no effect on one device
@@ -143,14 +152,18 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     return params
 
 
-def _layer(params, i: int) -> dict:
-    """Layer ``i``'s weights: a view of each stacked leaf, nested dicts
-    (``moe``) included."""
-    def pick(node):
+def _layers(params) -> list[dict]:
+    """Each layer's weights: views of the stacked leaves, nested dicts
+    (``moe``) included, from one ``unbind`` a leaf (whose backward stacks
+    the layers' gradients in one write)."""
+    def split(node):
         if isinstance(node, dict):
-            return {name: pick(w) for name, w in node.items()}
-        return node[i]
-    return pick(params["layers"])
+            parts = {name: split(w) for name, w in node.items()}
+            n = len(next(iter(parts.values())))
+            return [{name: p[i] for name, p in parts.items()}
+                    for i in range(n)]
+        return node.unbind(0)
+    return split(params["layers"])
 
 
 def _unembed(params, x):
@@ -184,9 +197,9 @@ def _self_attention(cfg: TransformerConfig, q, k, v):
     width = next((w for w in flash_ops.HEAD_DIMS if w >= dh), dh)
     if width != dh:
         q, k, v = (F.pad(t, (0, width - dh)) for t in (q, k, v))
-    out = flash_ops.flash_attention(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), causal=True,
-                                    sm_scale=dh ** -0.5)
+    out = flash_grad.flash_attention(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), causal=True,
+                                     sm_scale=dh ** -0.5)
     return out[..., :dh].transpose(1, 2).reshape(b, l, cfg.n_heads * dh)
 
 
@@ -235,23 +248,79 @@ def _ffn(cfg: TransformerConfig, lp, x):
     return f.reshape(b, l, d), aux
 
 
-@torch.inference_mode()
-def forward(cfg: TransformerConfig, params, tokens: torch.Tensor):
-    """tokens: int[B, L] -> (logits [B, L, V], aux_loss): the layers' MoE
-    load-balance losses summed, 0 for a dense model."""
+def _layer_fn(cfg: TransformerConfig, x, lp, positions):
+    """One layer on the residual stream x [B, L, D]: (x, aux), aux as
+    :func:`_ffn` gives it."""
+    h, _ = _attention(cfg, lp, rmsnorm(x, lp["ln_attn"]), positions)
+    x = x + h
+    f, aux = _ffn(cfg, lp, x)
+    return x + f, aux
+
+
+def _remat(cfg: TransformerConfig) -> bool:
+    return cfg.remat and torch.is_grad_enabled()
+
+
+def forward_hidden(cfg: TransformerConfig, params, tokens: torch.Tensor):
+    """Forward without the unembed projection: (the final-normed hidden
+    states [B, L, D], aux_loss): the layers' MoE load-balance losses
+    summed, 0 for a dense model."""
     x = params["embed"][tokens]
     positions = torch.arange(tokens.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
-        h, _ = _attention(cfg, lp, rmsnorm(x, lp["ln_attn"]), positions)
-        x = x + h
-        f, layer_aux = _ffn(cfg, lp, x)
-        x = x + f
+    remat = _remat(cfg)
+    for lp in _layers(params):
+        if remat:
+            x, layer_aux = checkpoint(_layer_fn, cfg, x, lp, positions,
+                                      use_reentrant=False)
+        else:
+            x, layer_aux = _layer_fn(cfg, x, lp, positions)
         if layer_aux is not None:
             aux = aux + layer_aux
-    logits = _unembed(params, rmsnorm(x, params["ln_f"]))
-    return logits, aux
+    return rmsnorm(x, params["ln_f"]), aux
+
+
+def forward(cfg: TransformerConfig, params, tokens: torch.Tensor):
+    """tokens: int[B, L] -> (logits [B, L, V], aux_loss)."""
+    x, aux = forward_hidden(cfg, params, tokens)
+    return _unembed(params, x), aux
+
+
+def loss_fn(cfg: TransformerConfig, params, batch) -> torch.Tensor:
+    """Mean next-token CE of ``batch["tokens"]`` against
+    ``batch["labels"]`` plus the MoE aux loss: an f32 scalar.  A config
+    with ``ce_chunk`` takes :func:`loss_fn_chunked`."""
+    if cfg.ce_chunk:
+        return loss_fn_chunked(cfg, params, batch, cfg.ce_chunk)
+    logits, aux = forward(cfg, params, batch["tokens"])
+    return cross_entropy_loss(logits, batch["labels"]) + aux
+
+
+def _chunk_loss(x, labels, unemb):
+    return cross_entropy_loss(x @ unemb, labels)
+
+
+def loss_fn_chunked(cfg: TransformerConfig, params, batch,
+                    chunk: int) -> torch.Tensor:
+    """CE over ``max(S // chunk, 1)`` sequence chunks, the mean of their
+    means: the unembed and CE run on ``[B, S / n_chunks, V]`` logits at a
+    time, never ``[B, S, V]`` (vocab 152k >> d_model makes them the
+    largest temporary of small-model training)."""
+    x, aux = forward_hidden(cfg, params, batch["tokens"])
+    b, s, d = x.shape
+    unemb = params["unembed"] if "unembed" in params else params["embed"].T
+    n_chunks = max(s // chunk, 1)
+    xc = x.reshape(b, n_chunks, s // n_chunks, d)
+    lc = batch["labels"].reshape(b, n_chunks, s // n_chunks)
+    remat = _remat(cfg)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_chunks):
+        if remat:
+            total = total + checkpoint(_chunk_loss, xc[:, i], lc[:, i],
+                                       unemb, use_reentrant=False)
+        else:
+            total = total + _chunk_loss(xc[:, i], lc[:, i], unemb)
+    return total / n_chunks + aux
 
 
 # ---------------------------------------------------------------------------
@@ -275,8 +344,7 @@ def prefill(cfg: TransformerConfig, params, tokens: torch.Tensor,
     shape = (cfg.n_layers, b, cfg.n_kv_heads, cache_len, cfg.head_dim)
     ks = torch.zeros(shape, dtype=x.dtype, device=x.device)
     vs = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
+    for i, lp in enumerate(_layers(params)):
         q, k, v = _qkv(cfg, lp, rmsnorm(x, lp["ln_attn"]), positions)
         x = x + _self_attention(cfg, q, k, v) @ lp["wo"]
         ks[i, :, :, :s] = k
@@ -309,8 +377,7 @@ def decode_step(cfg: TransformerConfig, params, cache, tokens: torch.Tensor,
     pos = int(pos)
     x = params["embed"][tokens]                   # [B, L, D]
     positions = pos + torch.arange(tokens.shape[1], device=x.device)
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
+    for i, lp in enumerate(_layers(params)):
         h, _ = _attention(cfg, lp, rmsnorm(x, lp["ln_attn"]), positions,
                           kv_cache=(cache["k"][i], cache["v"][i]),
                           cache_pos=pos)

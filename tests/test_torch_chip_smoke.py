@@ -856,3 +856,47 @@ def test_recsys_helpers_copy_trees_to_the_cpu():
     out = smoke.on_cpu(tree)
     assert isinstance(out["mlp"], list) and out["mlp"][0]["w"].shape == (1,)
     assert smoke.RECSYS_CPU_CANDIDATES <= 1_000_000
+
+
+def test_train_checks_hold_every_launch_of_the_steps():
+    """The [train] phase's checked run on the Qwen3 SMOKE model on the CPU:
+    one check a layer a step (no remat in SMOKE), the first launch's
+    arguments kept; the launch formula counts the remat recompute and
+    the microbatches."""
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    smoke = _smoke()
+    args = smoke.train_args(smoke.TRAIN_ARCH, 2, 4, 16, "--smoke",
+                            "--device", "cpu")
+    checks = smoke.train_checked(args, chunk=512)
+    cfg = get_arch(smoke.TRAIN_ARCH).smoke
+    assert checks.launches["flash_attention"] == \
+        smoke.train_launches(cfg, 1, 2) == 4
+    assert checks.err["flash_attention"] == 0.0
+    assert tuple(checks.kept["flash_attention"][0][0].shape) == (4, 4, 16, 32)
+    full = get_arch(smoke.TRAIN_ARCH).config
+    assert smoke.train_launches(full, 4, smoke.TRAIN_STEPS) == 672
+    assert smoke.train_launches(dataclasses.replace(full, remat=False), 4,
+                                3) == 336
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_grad_check_pieces_cover_every_row(causal):
+    """The reference of the [train] phase's ``attention_grad`` check:
+    autograd through the plain version over pieces of query rows equals
+    the whole, and ``attention_grad`` within f32 rounding of it."""
+    from repro_torch.kernels.flash_attention import grad, ref
+    smoke = _smoke()
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(s, generator=g) for s in
+               ((2, 4, 10, 32), (2, 2, 14, 32), (2, 2, 14, 32)))
+    dout = torch.randn(q.shape, generator=g)
+    whole = smoke.autograd_attention_ref(q, k, v, dout, causal)
+    pieces = smoke.autograd_attention_ref(q, k, v, dout, causal, rows=3)
+    out = ref.attention_ref(q, k, v, causal=causal)
+    got = grad.attention_grad(q, k, v, out, dout, causal)
+    for w, p, x in zip(whole, pieces, got):
+        torch.testing.assert_close(p, w, atol=1e-6, rtol=1e-6)
+        torch.testing.assert_close(x, w, atol=1e-5, rtol=1e-5)
+    tree = smoke.on_device({"a": [torch.ones(1)]}, "cpu")
+    assert isinstance(tree["a"], list)

@@ -1,5 +1,6 @@
-"""PyTorch port on the card: the MoE and DIEN serving paths against the
-same code on the CPU, on the same weights and inputs.
+"""PyTorch port on the card: the MoE and DIEN serving paths, attention's
+gradient and the training launcher against the same code on the CPU, on
+the same weights and inputs.
 
 Every test here is marked ``gpu`` and skips without a CUDA device.  The
 file imports neither JAX nor the JAX package:
@@ -13,7 +14,9 @@ import pytest
 import torch
 
 from repro_torch.configs.registry import get_arch
+from repro_torch.kernels.flash_attention import grad as flash_grad
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.launch import train
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.models.recsys import dien as D
@@ -99,3 +102,55 @@ def test_dien_on_the_card_equals_the_cpu(cuda):
         want = fn(cfg, params, b)
         got = fn(cfg, p, _to(b, cuda))
         torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_function_on_the_card_equals_the_cpu(cuda, dtype, causal):
+    """Forward on the kernel (once, no plain call), backward by
+    ``attention_grad``, against the same Function on the CPU (its plain
+    version): f32 within 1e-4, bf16 within bf16 rounding of the inputs'
+    f32 grads."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=g)
+               for shape in ((2, 8, 96, 64), (2, 4, 128, 64),
+                             (2, 4, 128, 64)))
+    dout = torch.randn(q.shape, generator=g)
+
+    def run(dev, dt):
+        ts = [t.to(dev, dt).requires_grad_() for t in (q, k, v)]
+        out = flash_grad.flash_attention(*ts, causal=causal)
+        return (out, *torch.autograd.grad(out, ts, dout.to(dev, dt)))
+
+    want = run("cpu", torch.float32)
+    flash_ops.reset_counts()
+    got = run(cuda, dtype)
+    assert flash_ops.LAUNCHES["flash_attention"] == 1
+    assert flash_ops.ref.attention_ref.calls == 0
+    tol = (dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32
+           else dict(atol=5e-2, rtol=2e-2))
+    for x, y in zip(got, want):
+        assert x.dtype == dtype
+        torch.testing.assert_close(x.float().cpu(), y, **tol)
+
+
+def test_train_smoke_on_the_card(cuda):
+    """``launch.train --smoke`` on the card (weights and batches from CUDA
+    generators, so not the CPU run's): finite losses, the first near
+    ln(vocab), the kernel once a layer a forward and no plain call, and a
+    second run's losses within 1e-5 of the first."""
+    import math
+    args = ["--arch", "qwen3-0.6b", "--smoke", "--steps", "4", "--batch",
+            "4", "--seq", "64"]
+    flash_ops.reset_counts()
+    stats: list = []
+    got = train.main(args, stats=stats)
+    cfg = get_arch("qwen3-0.6b").smoke
+    assert flash_ops.LAUNCHES["flash_attention"] == 4 * cfg.n_layers
+    assert flash_ops.ref.attention_ref.calls == 0
+    assert all(math.isfinite(x) for x in got)
+    assert abs(got[0] - math.log(cfg.vocab)) < 0.5
+    assert all(s["peak_bytes"] > 0 for s in stats)
+    again = train.main(args)
+    torch.testing.assert_close(torch.tensor(again), torch.tensor(got),
+                               atol=1e-5, rtol=0)

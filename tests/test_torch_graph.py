@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from repro.graph import generators as G
+from repro.graph.csr import from_edge_list
 from repro.graph.csr import pack_adjacency as jax_pack
 from repro.graph.csr import packed_contains as jax_packed_contains
 from repro.graph.dag import orient_dag as jax_orient
@@ -14,6 +15,7 @@ from repro.sparse.intersect import adj_contains as jax_adj_contains
 from repro.sparse.ops import compact_mask as jax_compact
 from repro.sparse.ops import expand_ragged as jax_expand
 from repro_torch.graph import generators as TG
+from repro_torch.graph.csr import from_edge_list as port_from_edge_list
 from repro_torch.graph.csr import pack_adjacency, packed_contains
 from repro_torch.graph.dag import orient_dag
 from repro_torch.sparse.intersect import adj_contains
@@ -66,6 +68,35 @@ def test_generators_give_identical_csr(name):
         np.testing.assert_array_equal(_np(js), _np(ts))
     for js, ts in zip(jg.undirected_edge_list(), tg.undirected_edge_list()):
         np.testing.assert_array_equal(_np(js), _np(ts))
+
+
+EDGES = np.array([[0, 1], [1, 2], [2, 0], [3, 3], [1, 2], [4, 1]])
+MORE_GRAPHS = {
+    "cycle7": (lambda: G.cycle(7), lambda: TG.cycle(7, device="cpu")),
+    "star6": (lambda: G.star(6), lambda: TG.star(6, device="cpu")),
+    "directed": (lambda: from_edge_list(EDGES, symmetrize=False),
+                 lambda: port_from_edge_list(EDGES, symmetrize=False,
+                                             device="cpu")),
+    "symmetric": (lambda: from_edge_list(EDGES, n_vertices=6),
+                  lambda: port_from_edge_list(EDGES, n_vertices=6,
+                                              device="cpu")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MORE_GRAPHS))
+def test_cycle_star_and_directed_edge_lists_match(name):
+    make_jax, make_port = MORE_GRAPHS[name]
+    _assert_same_csr(make_jax(), make_port())
+
+
+def test_graph_package_exports_jax_names():
+    import repro_torch.graph as port_graph
+    for name in ("CSRGraph", "build_csr", "from_edge_list", "orient_dag",
+                 "generators"):
+        assert hasattr(port_graph, name), name
+    assert port_graph.generators is TG
+    g = port_graph.from_edge_list(EDGES, symmetrize=False, device="cpu")
+    assert g.n_edges == 4                       # no loop, no duplicate
 
 
 @pytest.mark.parametrize("order", ["degree", "id"])

@@ -68,6 +68,11 @@ def test_port_imports_and_mines_with_jax_blocked():
         "                device='cpu').shape == (1, 2)\n"
         "assert serve_recsys(get_arch('dien'), True, 4, 0,\n"
         "                    device='cpu').shape == (4,)\n"
+        "from repro_torch.launch import train\n"
+        "for arch in ('qwen3-0.6b', 'dien'):\n"
+        "    assert len(train.main(['--arch', arch, '--smoke', '--steps',\n"
+        "                           '2', '--batch', '4', '--seq', '8',\n"
+        "                           '--device', 'cpu'])) == 2\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
         "               for k in sys.modules if sys.modules[k] is not None)\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}

@@ -186,3 +186,62 @@ def test_cuda_backend_refuses_labels_and_state():
                          to_add=lambda ctx, emb, u, st: u >= 0)
     with pytest.raises(NotImplementedError, match="batch to_add"):
         _small_miner(edge_app).run()
+
+
+def test_factory_backend_grid_contract_is_checked_on_first_use():
+    """A backend registered through a factory (not its class) declaring a
+    grid contract outside the legal set fails at its first resolution, in
+    both packages."""
+    from repro.core import phases as jax_phases
+    from repro_torch.core import phases as port_phases
+    for pkg, base in ((jax_phases, jax_phases.ReferenceBackend),
+                      (port_phases, port_phases.ReferenceBackend)):
+        class Bad(base):
+            grid_contract = "lookback"
+
+        pkg.register_backend("bad-contract", lambda: Bad())
+        try:
+            with pytest.raises(ValueError, match="grid_contract"):
+                pkg.get_backend("bad-contract")
+            assert "bad-contract" not in pkg._INSTANCES
+        finally:
+            pkg._REGISTRY.pop("bad-contract", None)
+            pkg._INSTANCES.pop("bad-contract", None)
+    with pytest.raises(ValueError, match="grid_contract"):
+        class BadClass(port_phases.ReferenceBackend):
+            grid_contract = "concurent"
+        port_phases.register_backend("bad-class", BadClass)
+    assert "bad-class" not in port_phases.available_backends()
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_compiled_cf(k):
+    from repro.core import make_cf_app_compiled as jax_compiled
+    g = G.rmat(7, 8, seed=1)
+    return int(JaxMiner(g, jax_compiled(k)).run().count)
+
+
+@pytest.mark.parametrize("k", [3, 4])
+def test_compiled_cf_counts_every_clique_once(k):
+    from repro_torch.core import make_cf_app_compiled
+    g = TG.rmat(7, 8, seed=1, device="cpu")
+    got = Miner(g, make_cf_app_compiled(k), backend="torch-ref",
+                device="cpu").run().count
+    want = Miner(g, make_cf_app(k), backend="torch-ref",
+                 device="cpu").run().count
+    assert int(got) == int(want) == _jax_compiled_cf(k) > 0
+
+
+def test_miner_takes_a_materialize_fn():
+    seen = []
+
+    def counting(levels):
+        seen.append(len(levels))
+        return materialize(levels)
+
+    g = TG.erdos_renyi(30, 0.25, seed=2, device="cpu")
+    want = Miner(g, make_cf_app(3), device="cpu").run().count
+    m = Miner(g, make_cf_app(3), device="cpu", materialize_fn=counting)
+    assert int(m.run().count) == int(want) and seen == [1]
+    assert int(m.run(plan_source="estimate").count) == int(want)
+    assert len(seen) >= 2                        # the estimator's probe too
