@@ -225,7 +225,7 @@ Phases (any failure raises, and the script exits non-zero):
               with the JAX package's train policy (4 microbatches, CE in
               chunks of 512, f32 gradient accumulation, AdamW with
               ``scan_update``) at train_4k's sequence of 4,096 and a global
-              batch of 16 (train_4k's 256 cut), 3 steps: every
+              batch of 16 (train_4k's 256 cut): one step with every
               ``flash_attention`` launch (one a layer a microbatch in the
               forward, one more in the remat recompute) held against
               ``attention_ref``; the kernel timed on the first launch's
@@ -233,11 +233,11 @@ Phases (any failure raises, and the script exits non-zero):
               backward ``attention_grad`` (PyTorch ops, no TPU
               counterpart) on the same, against autograd through the plain
               version in f32, beside autograd through
-              ``scaled_dot_product_attention``; then the counted run: each
-              step's loss (the first within 1.0 of ln(151,936)), wall
-              time, tokens/s and peak, 672 launches of the tensor-core
-              variant and no plain call, and a profile of one
-              microbatch's forward and backward.  Then Qwen3's widths
+              ``scaled_dot_product_attention``; then the counted run of 3
+              steps: each step's loss (the first within 1.0 of
+              ln(151,936)), wall time, tokens/s and peak, 672 launches of
+              the tensor-core variant and no plain call, and a profile of
+              one microbatch's forward and backward.  Then Qwen3's widths
               with 2 of its layers in f32, one train step on the card
               against the CPU (loss within 1e-4, gradients within 1e-3 of
               their norms, parameters within 1e-5, every FMA-variant
@@ -252,11 +252,40 @@ Phases (any failure raises, and the script exits non-zero):
               unsorted and bf16 launches held against the plain version,
               the kernel timed beside it and ``index_add_``, then one
               counted launch.
+19. gnn     — GNN training through ``build_cell(...).fn`` at CONFIG width
+              in f32 (TF32 off, seed 0), the message passing's
+              ``segment_sum`` on the segment-sum kernel: GAT (cora,
+              full_graph_sm: 2,708 nodes, 1,433 features, 7 classes, from
+              ``node_classification_data``), GraphSAGE full_graph_sm and
+              minibatch_lg (1,024 seeds, fanouts 15-10, 602 features, 41
+              classes, blocks from ``sample_fanout`` over 232,965 nodes at
+              the data's average degree of 8), NequIP and EquiformerV2
+              (2 of its 12 layers) on 128 molecules of 30 atoms joined as
+              one graph (3,840 atoms, 111,360 edges), and EquiformerV2 at
+              all 12 layers on the molecule shape's 16,384 edges (each
+              molecule's 64 nearest pairs).  For each cell: one step with
+              every kernel launch held against its plain version (f32
+              within the summation bound of ``check_segsum``), 3 counted
+              steps (loss, wall time, peak, the launches a step equal to
+              ``gnn_launches``, no plain call), a profile of one
+              full-depth EquiformerV2 step, and one step on the card
+              against the CPU (the molecules cut to 8, 1 and 1): losses
+              within 1e-4 (relative), unclipped gradients and the update
+              within 1e-3 of their norms, the potentials' energy and
+              forces within 1e-4.  The kernel timed on EquiformerV2's
+              layer-0 aggregation over the 111,360 edges beside its plain
+              version and ``index_add_`` (the JSON row
+              ``sorted_segment_sum:gnn``).
 
 The line before the last two is the kernels' JSON record; the line before
 the last is ``nvidia-smi``'s name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository around this file, it exits non-zero and prints no result.
+
+``python3 chip_smoke.py --gnn-memory`` runs only the potentials' train
+steps of ``GNN_MEMORY`` (the layers run plainly and under
+``torch.utils.checkpoint``, on the joined molecules and on the molecule
+shape's edge count) and prints their times, K7 launches and peaks.
 """
 from __future__ import annotations
 
@@ -439,6 +468,63 @@ def wrapper_module(name: str):
     else:
         from repro_torch.kernels.extend_fused import ops
     return ops
+
+
+SEGSUM_PIECE = 1 << 16          # rows a piece of segsum_bound's sums
+
+
+def segsum_bound(data, seg, n_segments: int):
+    """Per element of a segment sum of f32 rows, ``2.02 (n - 1) u S``: n
+    the segment's rows, S the sum of their magnitudes, u = 2^-24.  Any
+    two orders of adding the same n terms in f32 give sums within twice
+    the recursive-summation bound (n - 1) u S of the exact one, so within
+    this of each other (2.02: second-order terms and S's own rounding);
+    a segment of one row sums exactly.  S and n come from the plain
+    version, in pieces of ``SEGSUM_PIECE`` rows."""
+    import torch
+    from repro_torch.kernels.segsum import ref
+
+    mag = torch.zeros(n_segments, data.shape[1], device=data.device)
+    rows = torch.zeros(n_segments, 1, device=data.device)
+    for i in range(0, data.shape[0], SEGSUM_PIECE):
+        part = data[i:i + SEGSUM_PIECE].float().abs()
+        ids = seg[i:i + SEGSUM_PIECE]
+        mag += ref.sorted_segment_sum_ref(part, ids, n_segments)
+        rows += ref.sorted_segment_sum_ref(
+            torch.ones(part.shape[0], 1, device=data.device), ids,
+            n_segments)
+    return 2.02 * (rows - 1).clamp_min(0) * 2.0 ** -24 * mag
+
+
+def check_segsum(a, kw, got) -> float:
+    """A ``sorted_segment_sum`` launch's output against
+    ``sorted_segment_sum_ref`` on the same inputs.  bf16 at
+    ``assert_close``'s defaults; f32 element by element within
+    ``segsum_bound`` (plus the smallest normal f32), since the kernel adds
+    the same terms in another order (atomic adds): rounding apart, a
+    missing, extra or wrong term shows, and so does a NaN (as in
+    ``assert_close``).  Returns the largest absolute difference."""
+    import torch
+    from repro_torch.kernels.segsum import ref
+
+    want = ref.sorted_segment_sum_ref(*a, **kw)
+    if a[0].dtype == torch.bfloat16:
+        torch.testing.assert_close(got, want)
+        return float((got.float() - want.float()).abs().max())
+    diff = (got - want).abs()
+    bound = segsum_bound(*a, **kw) + torch.finfo(torch.float32).tiny
+    # a NaN in either is never within the bound; equal infinities are
+    bad = ~((diff <= bound) | (got == want))
+    if bool(bad.any()):
+        i = int(torch.argmax(torch.where(
+            bad, (diff - bound).nan_to_num(torch.inf), -torch.inf)))
+        raise AssertionError(
+            f"sorted_segment_sum: not close to the plain version: "
+            f"{int(bad.sum())} of {diff.numel()} elements past 2.02 (n - 1) "
+            f"u S; at flat index {i} |got - want| = "
+            f"{float(diff.view(-1)[i]):.3g}, the bound "
+            f"{float(bound.view(-1)[i]):.3g}")
+    return float(diff.max()) if diff.numel() else 0.0
 
 
 class KernelChecks:
@@ -678,15 +764,8 @@ class KernelChecks:
         return err
 
     def _check_sorted_segment_sum(self, a, kw, got) -> float:
-        """Against ``sorted_segment_sum_ref``: f32 sums in another order
-        (atomic adds) within 1e-4; bf16 at ``assert_close``'s defaults."""
-        import torch
-        from repro_torch.kernels.segsum import ref
-        want = ref.sorted_segment_sum_ref(*a, **kw)
-        tol = ({} if a[0].dtype == torch.bfloat16
-               else dict(atol=1e-4, rtol=1e-5))
-        torch.testing.assert_close(got, want, **tol)
-        return float((got.float() - want.float()).abs().max())
+        """Against ``sorted_segment_sum_ref`` (``check_segsum``)."""
+        return check_segsum(a, kw, got)
 
     def report(self, label: str) -> None:
         log(f"[check] {label}: launches {self.launches}, modes "
@@ -3286,6 +3365,9 @@ TRAIN_ARCH = "qwen3-0.6b"
 # train_4k's sequence; the global batch cut from 256 to 16 (4 microbatches
 # of 4), 3 steps
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 4096, 3
+# the checked run's steps: each step launches K8 at the same shapes, so one
+# checked step covers them (three took 36 s of the script's 600)
+TRAIN_CHECKED_STEPS = 1
 TRAIN_F32_LAYERS = 2            # the card-against-CPU f32 step's depth
 TRAIN_F32_TOKENS = 512          # its batch: 1 x 512
 TRAIN_FLASH_ROW = "flash_attention:train"   # K8 on the training path
@@ -3529,12 +3611,7 @@ def train_f32_against_cpu(n_layers: int = TRAIN_F32_LAYERS,
     p_opt, _ = apply_updates(params, g_gpu, init_opt_state(params, opt_cfg),
                              opt_cfg)
 
-    def rel(xs, ys):
-        return max(float((x - y).norm() / y.norm().clamp_min(1e-30))
-                   for (_, x), (_, y) in zip(leaves_with_paths(xs),
-                                             leaves_with_paths(ys)))
-
-    g_rel = rel(g_gpu, g_cpu)
+    g_rel = rel_leaves(g_gpu, g_cpu)
     p_err = max(float((x - y).abs().max())
                 for (_, x), (_, y) in zip(leaves_with_paths(p_gpu),
                                           leaves_with_paths(p_cpu)))
@@ -3543,8 +3620,8 @@ def train_f32_against_cpu(n_layers: int = TRAIN_F32_LAYERS,
     def delta(new):
         return {k: v - flat[k] for k, v in leaves_with_paths(new)}
 
-    u_opt = rel(delta(p_gpu), delta(p_opt))
-    u_cpu = rel(delta(p_gpu), delta(p_cpu))
+    u_opt = rel_leaves(delta(p_gpu), delta(p_opt))
+    u_cpu = rel_leaves(delta(p_gpu), delta(p_cpu))
     u_max = max(float(u.abs().max()) for u in delta(p_cpu).values())
     want = train_launches(cfg, 1, 1)
     log(f"[main] train f32 {TRAIN_ARCH} ({n_layers} of "
@@ -3641,9 +3718,9 @@ def dien_train() -> None:
 def train_phase() -> tuple[dict, int, float]:
     """The [train] phase: Qwen3-0.6B at full width in bf16 through
     ``launch.train.main`` (train_4k's sequence of 4,096, a global batch of
-    16 in 4 microbatches, 3 steps) with every K8 launch checked; K8 and
+    16 in 4 microbatches) for one step with every K8 launch checked; K8 and
     ``attention_grad`` timed on the first launch's arguments; the counted
-    run; then the f32 step on the card against the CPU, the restart on the
+    run of 3 steps; then the f32 step on the card against the CPU, the restart on the
     card and DIEN's train cell.  Returns K8's timing row on the training
     path, its counted launches and the checks' largest error."""
     import torch
@@ -3661,8 +3738,9 @@ def train_phase() -> tuple[dict, int, float]:
         f"(train_4k's global batch 256 cut to {TRAIN_BATCH}), "
         f"{TRAIN_STEPS} steps")
     args = train_args(TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ)
-    checks = train_checked(args)
-    want = train_launches(cfg, cell.n_micro, TRAIN_STEPS)
+    checks = train_checked(train_args(TRAIN_ARCH, TRAIN_CHECKED_STEPS,
+                                      TRAIN_BATCH, TRAIN_SEQ))
+    want = train_launches(cfg, cell.n_micro, TRAIN_CHECKED_STEPS)
     if checks.launches["flash_attention"] != want:
         raise AssertionError(f"train: {checks.launches} checked launches, "
                              f"not {want}")
@@ -3684,6 +3762,38 @@ def train_phase() -> tuple[dict, int, float]:
 
 # ---------------------------------------------------------------------------
 # The segment sum at ogb_products' scale
+
+
+def time_segsum(a, label: str, reps: tuple[int, int]) -> dict:
+    """``sorted_segment_sum`` timed on f32 arguments ``a`` (CUDA events,
+    ``reps`` calls of the kernel and of its plain version) beside
+    ``index_add_``; its output held by ``check_segsum``; the bound from
+    the bytes it must move (data and ids read once, the sums written
+    once).  Returns the kernels' JSON row."""
+    import torch
+    from repro_torch.kernels.segsum import ops, ref
+
+    data, seg, s = a
+    n, d = data.shape
+    ms, got = cuda_ms(lambda: ops.sorted_segment_sum(data, seg, s),
+                      reps=reps[0])
+    plain_ms, want = cuda_ms(lambda: ref.sorted_segment_sum_ref(data, seg, s),
+                             reps=reps[1])
+    lib_ms, lib = cuda_ms(lambda: torch.zeros(s, d, device="cuda").index_add_(
+        0, seg, data), reps=reps[0])
+    lib_err = float((lib - want).abs().max())
+    del want, lib
+    err = check_segsum(a, {}, got)
+    nbytes = (data.numel() + n + s * d) * 4
+    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "max_abs_err": err}
+    log(f"[timing] sorted_segment_sum{label} ({n} x {d} into {s}; "
+        f"{nvidia_smi_line()}): {ms:.3f} ms ({nbytes / ms / 1e6:.0f} GB/s; "
+        f"plain {plain_ms:.3f} ms, index_add_ {lib_ms:.3f} ms (max_abs_err "
+        f"{lib_err:.3g}), bound {row['bound_ms']:.4f} ms from {nbytes} B), "
+        f"max_abs_err {err:.3g}")
+    return row
 
 
 def segsum_phase() -> tuple[dict, int, float]:
@@ -3714,23 +3824,7 @@ def segsum_phase() -> tuple[dict, int, float]:
     checks.report("segsum (sorted, unsorted, bf16 on 2^22 rows)")
     torch.cuda.empty_cache()
 
-    ms, got = cuda_ms(lambda: ops.sorted_segment_sum(data, seg, s), reps=5)
-    plain_ms, want = cuda_ms(lambda: ref.sorted_segment_sum_ref(data, seg, s),
-                             reps=2)
-    lib_ms, lib = cuda_ms(lambda: torch.zeros(s, d, device="cuda").index_add_(
-        0, seg, data), reps=5)
-    err = float((got - want).abs().max())
-    lib_err = float((lib - want).abs().max())
-    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
-    del got, want, lib
-    nbytes = (data.numel() + n + s * d) * 4
-    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-           "max_abs_err": err}
-    log(f"[timing] sorted_segment_sum ({n} x {d} into {s}): {ms:.3f} ms "
-        f"({nbytes / ms / 1e6:.0f} GB/s; plain {plain_ms:.3f} ms, index_add_ "
-        f"{lib_ms:.3f} ms (max_abs_err {lib_err:.3g}), bound "
-        f"{row['bound_ms']:.4f} ms from {nbytes} B), max_abs_err {err:.3g}")
+    row = time_segsum((data, seg, s), "", reps=(5, 2))
 
     ops.reset_counts()
     torch.cuda.synchronize()
@@ -3755,6 +3849,473 @@ def segsum_phase() -> tuple[dict, int, float]:
     torch.cuda.empty_cache()
     return row, launches, max(checks.err.values())
 
+
+
+# ---------------------------------------------------------------------------
+# GNN training: the four archs' train cells at full width, K7 on the path
+
+# (arch, shape, layers or None for the config's, nearest pairs a molecule
+# or None for all).  EquiformerV2 runs twice: on the 128 joined molecules'
+# 111,360 edges its double backward keeps about 30 GB a layer (a step
+# peaks at 34.5 GB with 1 layer, 64.9 GB with 2 on an H100 80GB HBM3), so
+# 2 of its 12 layers; and at all 12 on the molecule shape's own 16,384
+# edges (64 nearest pairs a molecule, 66.0 GB).  The widths stay.
+GNN_CELLS = (("gat-cora", "full_graph_sm", None, None),
+             ("graphsage-reddit", "full_graph_sm", None, None),
+             ("graphsage-reddit", "minibatch_lg", None, None),
+             ("nequip", "molecule", None, None),
+             ("equiformer-v2", "molecule", 2, None),
+             ("equiformer-v2", "molecule", None, 64))
+GNN_STEPS = 3
+GNN_ROW = "sorted_segment_sum:gnn"     # K7 on EquiformerV2's aggregation
+# the CPU side of the card-against-CPU step: molecules of the batch kept
+GNN_CPU_MOLECULES = {"nequip": 8, "equiformer-v2": 1}
+# the cell whose step is profiled: EquiformerV2 at full depth
+GNN_PROFILED = ("equiformer-v2", None)
+
+
+def gnn_cell(arch_id: str, shape_name: str, smoke: bool = False,
+             **changes):
+    """``build_cell(arch_id, shape_name, smoke=smoke)``; with ``changes``
+    to the config (a depth cut), the same cell built by ``build_cell``'s
+    ``_gnn_train_cell`` from an ``ArchSpec`` that carries the changed
+    config."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import steps as S
+    if not changes:
+        return S.build_cell(arch_id, shape_name, smoke=smoke)
+    arch = get_arch(arch_id)
+    field = "smoke" if smoke else "config"
+    arch = dataclasses.replace(arch, **{field: dataclasses.replace(
+        getattr(arch, field), **changes)})
+    return S._gnn_train_cell(arch, shape_name, smoke)
+
+
+def joined_molecules(n_mol: int, n_atoms: int, device) -> dict:
+    """``molecule_batch(seed=0, step=i, n_atoms)`` for i < n_mol as one
+    disjoint graph: ids offset by ``n_atoms * i``, energies summed, forces
+    stacked."""
+    import torch
+    from repro_torch.data.pipeline import molecule_batch
+
+    ms = [molecule_batch(0, i, n_atoms, device=device) for i in range(n_mol)]
+    return {
+        "positions": torch.cat([m["positions"] for m in ms]),
+        "species": torch.cat([m["species"] for m in ms]),
+        "edge_src": torch.cat([m["edge_src"] + n_atoms * i
+                               for i, m in enumerate(ms)]),
+        "edge_dst": torch.cat([m["edge_dst"] + n_atoms * i
+                               for i, m in enumerate(ms)]),
+        "energy": sum(m["energy"] for m in ms),
+        "forces": torch.cat([m["forces"] for m in ms])}
+
+
+def sampled_blocks(shp: dict, d_feat: int, n_classes: int, device) -> dict:
+    """GraphSAGE's minibatch: ``batch_nodes`` seeds drawn without
+    replacement from ``node_classification_data(n_nodes, d_feat,
+    n_classes)`` (its default average degree of 8), their fanout frontiers
+    from ``sample_fanout`` and the frontiers' feature blocks."""
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import node_classification_data
+    from repro_torch.graph.csr import from_edge_list
+    from repro_torch.graph.sampler import sample_fanout
+
+    n = shp["n_nodes"]
+    data = node_classification_data(0, n, d_feat, n_classes, device="cpu")
+    g = from_edge_list(np.stack([data["edge_src"].numpy(),
+                                 data["edge_dst"].numpy()], 1),
+                       n_vertices=n, symmetrize=False, device="cpu")
+    seeds = np.random.default_rng(0).choice(n, shp["batch_nodes"],
+                                            replace=False)
+    fronts = sample_fanout(g, seeds, tuple(shp["fanout"]), seed=0)
+    feats = data["feats"]
+    return {"feat_blocks": [feats[torch.from_numpy(f).long()].to(device)
+                            for f in fronts],
+            "labels": data["labels"][torch.from_numpy(seeds)].to(device)}
+
+
+def gnn_batch(arch_id: str, shape_name: str, cfg, device,
+              molecules: int | None = None, pairs: int | None = None
+              ) -> dict:
+    """The cell's batch, made from seed 0: joined molecules (the shape's
+    128, or ``molecules``; with ``pairs``, each one's nearest pairs only),
+    GraphSAGE's sampled blocks, or the whole graph of
+    ``node_classification_data`` at the shape's nodes and features."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import node_classification_data
+    from repro_torch.launch import steps as S
+
+    shp = get_arch(arch_id).shapes[shape_name]
+    d_feat = S.gnn_d_feat(shape_name, shp)
+    if shape_name == "molecule":
+        n_mol = molecules or shp["batch"]
+        batch = joined_molecules(n_mol, shp["n_nodes"], device)
+        return nearest_pairs(batch, n_mol, shp["n_nodes"], pairs) if pairs \
+            else batch
+    if arch_id == "graphsage-reddit" and shape_name == "minibatch_lg":
+        return sampled_blocks(shp, d_feat, cfg.n_classes, device)
+    return node_classification_data(0, shp["n_nodes"], d_feat,
+                                    cfg.n_classes, device=device)
+
+
+def gnn_launches(arch_id: str, cfg, batch: dict) -> int:
+    """K7 launches of one train step, worked out from the code.  GAT: an
+    ``edge_softmax`` sum and the aggregation a layer; GraphSAGE full: the
+    sums and the counts of ``segment_mean`` a layer; sampled: none.
+    NequIP and EquiformerV2 (forces ``-dE/dpos`` inside the loss): the
+    forward's F launches (NequIP one an l a layer; EquiformerV2 the
+    softmax's sum and one an edge chunk a layer), then in the loss's
+    backward one a gather that the force's backward made, which is one a
+    forward launch except where no gradient reaches it: the last layer's
+    l > 0 sums (NequIP) and layer 0's softmax, which positions do not
+    reach (EquiformerV2); EquiformerV2 checkpoints its layers, so each
+    runs twice more, once in each backward."""
+    if "feat_blocks" in batch:
+        return 0
+    if arch_id in ("gat-cora", "graphsage-reddit"):
+        return 2 * cfg.n_layers
+    if arch_id == "nequip":
+        f, unreached = cfg.n_layers * (cfg.l_max + 1), cfg.l_max
+    else:
+        e = batch["edge_src"].shape[0]
+        chunk = cfg.edge_chunk if 0 < cfg.edge_chunk < e else 0
+        blocks = -(-e // chunk) if chunk else 1
+        f, unreached = cfg.n_layers * (1 + blocks), 1
+    remat = 2 * f if arch_id == "equiformer-v2" else 0
+    return f + remat + f - unreached
+
+
+@contextlib.contextmanager
+def first_launch(pred):
+    """While active, keeps the arguments of the first
+    ``sorted_segment_sum`` call for which ``pred(data)`` holds in
+    ``kept``; the call runs as is."""
+    from repro_torch.kernels.segsum import ops
+    fn = ops.sorted_segment_sum
+    kept: dict = {}
+
+    def run(*a, **kw):
+        if not kept and pred(a[0]):
+            kept["args"] = (tuple(t.detach() if hasattr(t, "detach") else t
+                                  for t in a), kw)
+        return fn(*a, **kw)
+    ops.sorted_segment_sum = run
+    try:
+        yield kept
+    finally:
+        ops.sorted_segment_sum = fn
+
+
+def rel_leaves(xs, ys) -> float:
+    """The largest ``|x - y| / |y|`` over matching leaves (norms)."""
+    from repro_torch.train.tree import leaves_with_paths
+    return max(float((x - y).norm() / y.norm().clamp_min(1e-30))
+               for (_, x), (_, y) in zip(leaves_with_paths(xs),
+                                         leaves_with_paths(ys)))
+
+
+GNN_MODULES = {"gat-cora": "gat", "graphsage-reddit": "graphsage",
+               "nequip": "nequip", "equiformer-v2": "equiformer_v2"}
+
+
+def gnn_model(arch_id: str):
+    import importlib
+    return importlib.import_module(
+        f"repro_torch.models.gnn.{GNN_MODULES[arch_id]}")
+
+
+def gnn_against_cpu(arch_id: str, label: str, cell, batch: dict,
+                    card: str = "cuda") -> None:
+    """One f32 step of the cell spelled out (``loss_and_grads`` of the
+    model's ``loss_fn``, then ``apply_updates`` under the cell's
+    ``OptConfig``) on the card and on the CPU from the same weights (seed
+    0), zero optimizer state and batch: the losses within 1e-4 of the
+    CPU's (relative), the unclipped gradients within 1e-3 of their norms,
+    leaf by leaf, and the card's update ``new_p - p`` within 1e-3 of its
+    norm of the update the CPU makes from the card's gradients.  For the
+    potentials, whose losses the targets dominate, also what the model
+    predicts: the energy within 1e-4 of its magnitude and the forces
+    within 1e-4 of their norm.  ``card`` is the device held against the
+    CPU."""
+    import torch
+    from repro_torch.launch import steps as S
+    from repro_torch.train.optimizer import apply_updates, init_opt_state
+    from repro_torch.train.tree import leaves_with_paths
+
+    mod, cfg, opt_cfg = gnn_model(arch_id), cell.cfg, cell.opt_cfg
+    cpu = torch.device("cpu")
+    params = cell.param_init(torch.Generator().manual_seed(0), device=cpu)
+    batch = on_cpu(batch)
+    out = []
+    for dev in (torch.device(card), cpu):
+        p, b = on_device(params, dev), on_device(batch, dev)
+        t0 = time.perf_counter()
+        loss, grads = S.loss_and_grads(
+            lambda p_, b_: mod.loss_fn(cfg, p_, b_), p, b)
+        new_p, _ = apply_updates(p, grads, init_opt_state(p, opt_cfg),
+                                 opt_cfg)
+        pred = None
+        if "positions" in b:
+            pred = [t.detach().cpu() for t in mod.energy_and_forces(
+                lambda pos: mod.forward(cfg, p, b["species"], pos,
+                                        b["edge_src"], b["edge_dst"]),
+                b, create_graph=False)]
+        out.append((float(loss), on_cpu(grads), on_cpu(new_p), pred))
+        log(f"[main] gnn {arch_id} {label} f32 {dev.type}: loss "
+            f"{float(loss):.6f} in {time.perf_counter() - t0:.2f} s")
+        del p, b, grads, new_p
+    (l_gpu, g_gpu, p_gpu, e_gpu), (l_cpu, g_cpu, _, e_cpu) = out
+    p_opt, _ = apply_updates(params, g_gpu, init_opt_state(params, opt_cfg),
+                             opt_cfg)
+    flat = dict(leaves_with_paths(params))
+
+    def delta(new):
+        return {k: v - flat[k] for k, v in leaves_with_paths(new)}
+
+    l_rel = abs(l_gpu - l_cpu) / max(abs(l_cpu), 1e-30)
+    g_rel = rel_leaves(g_gpu, g_cpu)
+    u_rel = rel_leaves(delta(p_gpu), delta(p_opt))
+    e_rel = f_rel = 0.0
+    said = ""
+    if e_cpu is not None:
+        (e1, f1), (e0, f0) = e_gpu, e_cpu
+        e_rel = float((e1 - e0).abs() / e0.abs().clamp_min(1e-30))
+        f_rel = float((f1 - f0).norm() / f0.norm().clamp_min(1e-30))
+        said = (f", energy {float(e1):.6f} / {float(e0):.6f} (relative "
+                f"{e_rel:.3g}), forces within {f_rel:.3g} of their norm")
+    log(f"[main] gnn {arch_id} {label}, cuda against cpu: loss "
+        f"{l_gpu:.6f} / {l_cpu:.6f} (relative {l_rel:.3g}), gradients "
+        f"within {g_rel:.3g} of their norms, the update from the card's "
+        f"gradients within {u_rel:.3g}{said}")
+    if not (l_rel <= 1e-4 and g_rel <= 1e-3 and u_rel <= 1e-3
+            and e_rel <= 1e-4 and f_rel <= 1e-4):
+        raise AssertionError(f"gnn {arch_id} {label}: the card's step "
+                             "differs from the CPU's")
+
+
+def gnn_counted(arch_id: str, label: str, cell, params, state,
+                batch: dict) -> int:
+    """``GNN_STEPS`` steps of the cell with the counts set to 0 just
+    before: each step's loss, wall time, peak and K7 launches printed,
+    the launches of every step equal to ``gnn_launches``, no plain call,
+    every loss finite.  Returns the launches."""
+    import math
+
+    import torch
+    from repro_torch.kernels.segsum import ops, ref
+
+    want = gnn_launches(arch_id, cell.cfg, batch)
+    smi = nvidia_smi_line()
+    ops.reset_counts()
+    for step in range(GNN_STEPS):
+        before = ops.LAUNCHES["sorted_segment_sum"]
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss = cell.fn(params, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = ops.LAUNCHES["sorted_segment_sum"] - before
+        loss = float(loss)
+        log(f"[main] gnn {arch_id} {label} step {step}: loss "
+            f"{loss:.6g}, {wall:.3f} s, peak "
+            f"{torch.cuda.max_memory_allocated()} B, K7 launches {got} "
+            f"(want {want}) ({smi})")
+        if got != want or not math.isfinite(loss):
+            raise AssertionError(f"gnn {arch_id} {label} step {step}: "
+                                 f"{got} launches, loss {loss}")
+    launches = ops.LAUNCHES["sorted_segment_sum"]
+    plain = ref.sorted_segment_sum_ref.calls
+    log(f"[main] gnn {arch_id} {label}: launches {launches}, plain "
+        f"calls {plain}")
+    if plain:
+        raise AssertionError(f"gnn {arch_id} {label}: {plain} plain "
+                             "calls")
+    return launches
+
+
+def gnn_checked(arch_id: str, label: str, cell, params, state,
+                batch: dict):
+    """One step of the cell with every K7 launch held against its plain
+    version, as many launches as ``gnn_launches`` says; EquiformerV2's
+    first aggregation launch (``[E, C (l_max+1)^2]`` rows, layer 0's) kept
+    as ``kept["args"]``.  Returns the new params and state, the checks and
+    ``kept``."""
+    cfg = cell.cfg
+    width = getattr(cfg, "d_hidden", 0) * getattr(cfg, "sph_dim", 0)
+    checks = KernelChecks(names=tuple(SEGSUM_REPLACES))
+    with first_launch(lambda d: width and d.shape[1] == width) as kept:
+        with checks:
+            params, state, loss = cell.fn(params, state, batch)
+    want = gnn_launches(arch_id, cfg, batch)
+    checks.report(f"gnn {arch_id} {label} (loss {float(loss):.6g})")
+    if checks.launches["sorted_segment_sum"] != want:
+        raise AssertionError(f"gnn {arch_id} {label}: "
+                             f"{checks.launches} checked launches, not "
+                             f"{want}")
+    return params, state, checks, kept
+
+
+def gnn_phase() -> tuple[dict, int, float]:
+    """The [gnn] phase: each GNN cell of ``GNN_CELLS`` through
+    ``build_cell(...).fn`` at CONFIG width in f32 (seed 0): one step with
+    every K7 launch held against its plain version, ``GNN_STEPS`` counted
+    steps, one step on the card against the CPU; K7 timed on
+    EquiformerV2's layer-0 aggregation on all the joined edges.  Returns
+    the timing row, the counted launches and the checks' largest error."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.tree import leaves
+
+    launches, err, row = 0, 0.0, None
+    for arch_id, shape_name, depth, pairs in GNN_CELLS:
+        t_cell = time.perf_counter()
+        cell = gnn_cell(arch_id, shape_name,
+                        **({"n_layers": depth} if depth else {}))
+        cfg = cell.cfg
+        label = " ".join([shape_name, *([f"{depth} layers"] if depth else []),
+                          *([f"{pairs} pairs"] if pairs else [])])
+        batch = gnn_batch(arch_id, shape_name, cfg, "cuda", pairs=pairs)
+        params = cell.param_init(torch.Generator("cuda").manual_seed(0),
+                                 device="cuda")
+        state = init_opt_state(params, cell.opt_cfg)
+        n_params = sum(int(x.numel()) for x in leaves(params))
+        shapes = {k: (tuple(v.shape) if hasattr(v, "shape")
+                      else [tuple(x.shape) for x in v])
+                  for k, v in batch.items()}
+        log(f"[gnn] {arch_id} {label}: {cfg} ({n_params} parameters, "
+            f"depth cut {depth or 'none'}, nearest pairs a molecule "
+            f"{pairs or 'all'}); batch {shapes}")
+        parts = [time.perf_counter()]
+        params, state, checks, kept = gnn_checked(arch_id, label, cell,
+                                                  params, state, batch)
+        err = max(err, checks.err["sorted_segment_sum"])
+        if kept and row is None:
+            row = time_segsum(kept.pop("args")[0], " gnn", reps=(10, 3))
+        kept.clear()
+        torch.cuda.empty_cache()
+        parts.append(time.perf_counter())
+        launches += gnn_counted(arch_id, label, cell, params, state, batch)
+        parts.append(time.perf_counter())
+        if (arch_id, depth) == GNN_PROFILED:
+            profile_call(lambda: cell.fn(params, state, batch),
+                         f"gnn {arch_id} {label} step")
+        parts.append(time.perf_counter())
+        del params, state
+        torch.cuda.empty_cache()
+        if arch_id in GNN_CPU_MOLECULES:
+            n_mol = GNN_CPU_MOLECULES[arch_id]
+            log(f"[gnn] {arch_id} {label} card against CPU: {n_mol} of the "
+                f"{get_arch(arch_id).shapes[shape_name]['batch']} molecules,"
+                f" {cfg.n_layers} layers")
+            batch = gnn_batch(arch_id, shape_name, cfg, "cpu",
+                              molecules=n_mol, pairs=pairs)
+        gnn_against_cpu(arch_id, label, cell, batch)
+        del batch
+        torch.cuda.empty_cache()
+        parts.append(time.perf_counter())
+        took = ", ".join(f"{name} {b - a:.1f} s" for name, a, b in zip(
+            ("checked step and timing", "counted steps", "profile",
+             "against the CPU"), parts, parts[1:]))
+        log(f"[gnn] {arch_id} {label}: {time.perf_counter() - t_cell:.1f} s "
+            f"({took})")
+    if row is None:
+        raise AssertionError("gnn: no EquiformerV2 aggregation was kept")
+    return row, launches, err
+
+
+# ``--gnn-memory``: the potentials' train steps with each layer run
+# plainly and under torch.utils.checkpoint (JAX's remat), on the
+# phase's 128 joined molecules ("dense", all pairs) and on the molecule
+# shape's own edge count (each molecule's nearest pairs): (arch, layers,
+# pairs a molecule or None for all)
+GNN_MEMORY = (("nequip", 5, None), ("equiformer-v2", 2, None),
+              ("equiformer-v2", 3, None), ("equiformer-v2", 12, 64))
+
+
+def nearest_pairs(batch: dict, n_mol: int, n_atoms: int, pairs: int
+                  ) -> dict:
+    """``joined_molecules``' batch with each molecule's edges cut to its
+    ``pairs`` nearest atom pairs, both ways: the ``molecule`` shape's
+    ``2 x n_edges`` a molecule."""
+    import torch
+    pos = batch["positions"].view(n_mol, n_atoms, 3)
+    i, j = torch.triu_indices(n_atoms, n_atoms, 1, device=pos.device)
+    near = (pos[:, i] - pos[:, j]).norm(dim=-1).topk(
+        pairs, dim=1, largest=False).indices
+    off = n_atoms * torch.arange(n_mol, device=pos.device)[:, None]
+    s, t = (i[near] + off).reshape(-1), (j[near] + off).reshape(-1)
+    dt = batch["edge_src"].dtype
+    return {**batch, "edge_src": torch.cat([s, t]).to(dt),
+            "edge_dst": torch.cat([t, s]).to(dt)}
+
+
+@contextlib.contextmanager
+def layer_remat(mod, on: bool):
+    """While active, each layer of ``mod``'s forward runs under
+    ``torch.utils.checkpoint`` (non-reentrant, as JAX's scan remats it)
+    if ``on``, else plainly, whichever the model does itself."""
+    from torch.utils.checkpoint import checkpoint
+    layer, own = mod._layer, getattr(mod, "checkpoint", None)
+    if own is not None:
+        mod.checkpoint = lambda fn, *a, use_reentrant: fn(*a)
+    if on:
+        mod._layer = lambda *a: checkpoint(layer, *a, use_reentrant=False)
+    try:
+        yield
+    finally:
+        mod._layer = layer
+        if own is not None:
+            mod.checkpoint = own
+
+
+def gnn_memory() -> None:
+    """Each ``GNN_MEMORY`` cell at CONFIG width in f32: two train steps
+    from seed 0 with the layers run plainly and under checkpoints
+    (``layer_remat``), each step's wall time and K7 launches and the two
+    steps' peak printed (or that the card ran out of memory)."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.segsum import ops
+    from repro_torch.train.optimizer import init_opt_state
+
+    smi = nvidia_smi_line()
+    for arch_id, depth, pairs in GNN_MEMORY:
+        cell = gnn_cell(arch_id, "molecule", n_layers=depth)
+        shp = get_arch(arch_id).shapes["molecule"]
+        batch = joined_molecules(shp["batch"], shp["n_nodes"], "cuda")
+        if pairs:
+            batch = nearest_pairs(batch, shp["batch"], shp["n_nodes"], pairs)
+        edges = int(batch["edge_src"].shape[0])
+        for remat in (False, True):
+            label = (f"[gnn-memory] {arch_id} {depth} layers, {edges} edges, "
+                     f"{'remat' if remat else 'no remat'}")
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                params = cell.param_init(
+                    torch.Generator("cuda").manual_seed(0), device="cuda")
+                state = init_opt_state(params, cell.opt_cfg)
+                with layer_remat(gnn_model(arch_id), remat):
+                    for step in range(2):
+                        ops.reset_counts()
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        params, state, loss = cell.fn(params, state, batch)
+                        torch.cuda.synchronize()
+                        log(f"{label} step {step}: loss {float(loss):.6g}, "
+                            f"{time.perf_counter() - t0:.3f} s, K7 launches "
+                            f"{ops.LAUNCHES['sorted_segment_sum']}")
+                log(f"{label}: peak {torch.cuda.max_memory_allocated()} B "
+                    f"({smi})")
+            except torch.cuda.OutOfMemoryError:
+                log(f"{label}: out of memory, peak "
+                    f"{torch.cuda.max_memory_allocated()} B ({smi})")
+            params = state = None
+        del batch
+    torch.cuda.empty_cache()
 
 
 def lint_phase() -> None:
@@ -3797,9 +4358,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
+    t_script = time.perf_counter()
     smi = nvidia_smi_line()
     log(f"[device] {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
+    if sys.argv[1:] == ["--gnn-memory"]:
+        gnn_memory()
+        return 0
     lint_phase()
 
     t0 = time.perf_counter()
@@ -4034,9 +4599,17 @@ def main() -> int:
         segsum_phase()
     log(f"[segsum] phase {time.perf_counter() - t_phase:.1f} s")
 
+    # GNN training: GAT, GraphSAGE (full and sampled), NequIP and
+    # EquiformerV2 at full width, their message passing on K7
+    t_phase = time.perf_counter()
+    timing[GNN_ROW], launches[GNN_ROW], gnn_err = gnn_phase()
+    launches["sorted_segment_sum"] += launches[GNN_ROW]
+    log(f"[gnn] phase {time.perf_counter() - t_phase:.1f} s")
+
     kernels = []
     errs = {**checks16.err, **checks15.err, **checks_tc.err, **checks_1p.err,
-            **checks_lm.err, "sorted_segment_sum": seg_err,
+            **checks_lm.err, "sorted_segment_sum": max(seg_err, gnn_err),
+            GNN_ROW: gnn_err,
             MOE_FLASH_ROW: moe_err, TRAIN_FLASH_ROW: train_err}
     errs["flash_attention"] = max(errs["flash_attention"], moe_err,
                                   train_err)
@@ -4058,7 +4631,9 @@ def main() -> int:
                            **INTERSECT_REPLACES, **FLASH_REPLACES,
                            MOE_FLASH_ROW: FLASH_REPLACES["flash_attention"],
                            TRAIN_FLASH_ROW: FLASH_REPLACES["flash_attention"],
-                           **SEGSUM_REPLACES}.items():
+                           **SEGSUM_REPLACES,
+                           GNN_ROW: SEGSUM_REPLACES["sorted_segment_sum"],
+                           }.items():
         t = timing[name]
         module = wrapper_module(name.split(":")[0])
         kernels.append({
@@ -4072,6 +4647,7 @@ def main() -> int:
             "library_ms": t.get("library_ms"),
             **{key: t[key] for key in ("live_slots", "tail_slots",
                                        *RESOURCE_KEYS) if key in t}})
+    log(f"[main] chip_smoke.py: {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution for the launchers
 (counterpart of ``repro.configs.registry``).
 
-Every id of the JAX package is known here; the LM and recsys ids resolve.
-The GNN ids raise ``NotImplementedError``: ROADMAP.md queue 1 lists them
-with the rest of the ML stack.
+Every id of the JAX package resolves here: the LM, GNN and recsys
+families.
 """
 from __future__ import annotations
 
@@ -20,10 +19,8 @@ ARCH_IDS = [
     "dien",
 ]
 
-_PORTED = ["qwen3-0.6b", "command-r-plus-104b", "yi-34b", "deepseek-moe-16b",
-           "kimi-k2-1t-a32b", "dien"]
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
-            for a in _PORTED}
+            for a in ARCH_IDS}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,12 +33,8 @@ class ArchSpec:
 
 
 def get_arch(arch_id: str) -> ArchSpec:
-    if arch_id not in ARCH_IDS:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     if arch_id not in _MODULES:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet; ported: {list(_MODULES)} "
-            "(ROADMAP.md queue 1, the ML stack)")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     mod = importlib.import_module(_MODULES[arch_id])
     return ArchSpec(arch_id=arch_id, family=mod.FAMILY, config=mod.CONFIG,
                     smoke=mod.SMOKE, shapes=FAMILY_SHAPES[mod.FAMILY])

@@ -7,9 +7,10 @@ its executor recorded.  ``graph_from_arrays`` takes the numpy arrays of a
 schema, vertex plans and FSM's edge plans with their filter capacities
 alike, so a plan recorded by the JAX executor replays in the port and
 back.  For the models, ``transformer_params_from_numpy`` (dense and MoE)
-and ``dien_params_from_numpy`` take the JAX parameter tree as numpy
-arrays, bf16 leaves bit for bit, and ``opt_state_from_numpy`` the JAX
-optimizer state beside it.  Nothing here
+``dien_params_from_numpy`` and ``gnn_params_from_numpy`` (GAT, GraphSAGE,
+NequIP, EquiformerV2) take the JAX parameter tree as numpy arrays, bf16
+leaves bit for bit, and ``opt_state_from_numpy`` the JAX optimizer state
+beside it.  Nothing here
 imports the JAX package: the exchange is numpy arrays and JSON text.
 """
 from __future__ import annotations
@@ -75,6 +76,14 @@ def transformer_params_from_numpy(tree, device: DeviceSpec = None) -> dict:
 def dien_params_from_numpy(tree, device: DeviceSpec = None) -> dict:
     """The port's DIEN parameters from the JAX ones as numpy arrays, with
     the same names, shapes and dtypes; ``mlp`` stays a list of layers."""
+    return _convert(tree, resolve_device(device))
+
+
+def gnn_params_from_numpy(tree, device: DeviceSpec = None) -> dict:
+    """The port's GNN parameters from the JAX ones as numpy arrays, with
+    the same names, shapes and dtypes: GAT's and GraphSAGE's ``layers``
+    lists, and NequIP's and EquiformerV2's stacked ``layers`` with their
+    ``mix`` and ``so2`` lists."""
     return _convert(tree, resolve_device(device))
 
 

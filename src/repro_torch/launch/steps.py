@@ -3,12 +3,12 @@ step function, the optimizer and memory policy it runs under, and its
 parameter initialiser.
 
 The LM cells: train (a step of ``loss_fn`` with microbatch gradient
-accumulation and ``apply_updates``), prefill and decode; the recsys cells:
-train, serve and retrieval.  The JAX package's cells also carry abstract
-input specs and shardings for its dry-run; the port runs on one device and
-has neither (``mesh`` must be None: ROADMAP.md queue 1 keeps the mesh,
-sharding and dry-run launchers for last).  The GNN ids are not ported:
-``get_arch`` raises ``NotImplementedError`` naming ROADMAP.md.
+accumulation and ``apply_updates``), prefill and decode; the GNN cells
+(GAT, GraphSAGE, NequIP, EquiformerV2 at every GNN shape): train; the
+recsys cells: train, serve and retrieval.  The JAX package's cells also
+carry abstract input specs and shardings for its dry-run; the port runs on
+one device and has neither (``mesh`` must be None: ROADMAP.md queue 1
+keeps the mesh, sharding and dry-run launchers for last).
 
 A train cell's ``fn(params, opt_state, batch)`` returns ``(params,
 opt_state, loss)``, new tensors for the first two.  Its gradients come from
@@ -167,6 +167,45 @@ def _lm_decode_cell(arch: ArchSpec, shape_name: str, smoke: bool
 
 
 # ---------------------------------------------------------------------------
+# family: GNN
+
+
+def gnn_d_feat(shape_name: str, shp: dict) -> int:
+    """A GNN shape's node features, the JAX package's (``_gnn_sizes``):
+    minibatch_lg's 602 (Reddit's), the shape's ``d_feat``, else 64."""
+    if shape_name == "minibatch_lg":
+        return 602
+    if shape_name == "molecule":
+        return 64
+    return shp.get("d_feat", 64)
+
+
+def _gnn_train_cell(arch: ArchSpec, shape_name: str, smoke: bool) -> Cell:
+    """A GNN train step under ``OptConfig()``, no microbatches.  GAT and
+    GraphSAGE at full size take the shape's ``d_feat`` as ``d_in``;
+    GraphSAGE's ``minibatch_lg`` runs the sampled forward at the shape's
+    fanouts."""
+    from repro_torch.models.gnn import equiformer_v2, gat, graphsage, nequip
+    cfg = arch.smoke if smoke else arch.config
+    shp = arch.shapes[shape_name]
+    if arch.arch_id in ("nequip", "equiformer-v2"):
+        mod = nequip if arch.arch_id == "nequip" else equiformer_v2
+    else:
+        mod = graphsage if arch.arch_id == "graphsage-reddit" else gat
+        if not smoke:
+            cfg = dataclasses.replace(cfg, d_in=gnn_d_feat(shape_name, shp))
+            if mod is graphsage and shape_name == "minibatch_lg":
+                # the sampled path runs the shape's fanouts, not the arch's
+                cfg = dataclasses.replace(cfg,
+                                          sample_sizes=tuple(shp["fanout"]))
+    opt_cfg = OptConfig()
+    return Cell(arch.arch_id, shape_name, "train",
+                _train_step(partial(mod.loss_fn, cfg), opt_cfg, 1, "float32"),
+                param_init=partial(mod.init_params, cfg), opt_cfg=opt_cfg,
+                cfg=cfg)
+
+
+# ---------------------------------------------------------------------------
 # family: recsys
 
 
@@ -203,8 +242,10 @@ def build_cell(arch_id: str, shape_name: str, mesh=None,
         raise NotImplementedError(
             "the port's cells run on one device; meshes and shardings are "
             "not ported yet (ROADMAP.md queue 1)")
-    arch = get_arch(arch_id)  # the GNN ids raise NotImplementedError here
+    arch = get_arch(arch_id)
     kind = arch.shapes[shape_name]["kind"]
+    if arch.family == "gnn":
+        return _gnn_train_cell(arch, shape_name, smoke)
     if arch.family == "lm":
         if kind == "train":
             return _lm_train_cell(arch, shape_name, smoke, optimized)

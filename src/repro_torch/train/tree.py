@@ -60,3 +60,28 @@ def structure(tree: Any) -> str:
         inner = ", ".join(structure(v) for v in tree)
         return f"({inner}{',' if len(tree) == 1 else ''})"
     return "*"
+
+
+def tree_stack(trees: list) -> Any:
+    """Trees of one structure stacked leaf by leaf on a new leading axis
+    (``jax.tree.map(lambda *xs: jnp.stack(xs), *trees)``)."""
+    import torch
+    return tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
+
+
+def tree_unstack(tree: Any) -> list:
+    """The slices of a stacked tree along its leading axis, one tree a
+    slice, from one ``unbind`` a leaf (whose backward stacks the slices'
+    gradients in one write)."""
+    parts = tree_map(lambda x: x.unbind(0), tree)
+    n = len(leaves(tree)[0])
+
+    def pick(i):
+        def walk(node):
+            if isinstance(node, dict):
+                return {k: walk(v) for k, v in node.items()}
+            if isinstance(node, list):
+                return [walk(v) for v in node]
+            return node[i]              # a leaf's tuple of slices
+        return walk(parts)
+    return [pick(i) for i in range(n)]

@@ -900,3 +900,259 @@ def test_attention_grad_check_pieces_cover_every_row(causal):
         torch.testing.assert_close(x, w, atol=1e-5, rtol=1e-5)
     tree = smoke.on_device({"a": [torch.ones(1)]}, "cpu")
     assert isinstance(tree["a"], list)
+
+
+# -- the [gnn] phase: the GNN train cells, K7 on their message passing
+
+def _gnn_smoke_cell(smoke, arch_id, shape, **changes):
+    """The SMOKE cell of (arch, shape) from ``gnn_cell``, its config
+    changed as the phase cuts depth, and a small batch on the CPU."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import node_classification_data
+    from repro_torch.launch import steps as S
+    cell = smoke.gnn_cell(arch_id, shape, smoke=True, **changes)
+    plain = S.build_cell(arch_id, shape, smoke=True)
+    assert cell.cfg == dataclasses.replace(plain.cfg, **changes)
+    assert get_arch(arch_id).smoke.n_layers == plain.cfg.n_layers
+    cfg = cell.cfg
+    if shape == "molecule":
+        batch = smoke.joined_molecules(3, 8, "cpu")
+    elif arch_id == "graphsage-reddit" and shape == "minibatch_lg":
+        batch = smoke.sampled_blocks(
+            {"n_nodes": 300, "batch_nodes": 8, "fanout": cfg.sample_sizes},
+            cfg.d_in, cfg.n_classes, "cpu")
+    else:
+        batch = node_classification_data(0, 60, cfg.d_in, cfg.n_classes,
+                                         device="cpu")
+    return cell, batch
+
+
+GNN_VARIANTS = [("gat-cora", "full_graph_sm", {}),
+                ("graphsage-reddit", "full_graph_sm", {}),
+                ("graphsage-reddit", "minibatch_lg", {}),
+                ("nequip", "molecule", {}),
+                ("nequip", "molecule", {"n_layers": 1}),
+                ("equiformer-v2", "molecule", {}),
+                ("equiformer-v2", "molecule", {"n_layers": 1}),
+                ("equiformer-v2", "molecule", {"edge_chunk": 64})]
+
+
+@pytest.mark.parametrize("arch_id,shape,changes", GNN_VARIANTS,
+                         ids=lambda x: str(x))
+def test_gnn_checks_hold_and_count_every_k7_launch(arch_id, shape, changes):
+    """One step of each GNN cell on the CPU with every ``segment_sum``
+    launch checked: as many as ``gnn_launches`` works out (a depth cut,
+    EquiformerV2's edge chunks and the double backward's unreached sums
+    included), and EquiformerV2's first aggregation kept
+    at its ``[E, C (l_max+1)^2]`` width."""
+    from repro_torch.kernels.segsum import ops as segsum_ops
+    from repro_torch.kernels.segsum import ref as segsum_ref
+    from repro_torch.train.optimizer import init_opt_state
+    smoke = _smoke()
+    cell, batch = _gnn_smoke_cell(smoke, arch_id, shape, **changes)
+    params = cell.param_init(torch.Generator().manual_seed(0), device="cpu")
+    state = init_opt_state(params, cell.opt_cfg)
+    segsum_ref.sorted_segment_sum_ref.calls = 0
+    new_p, new_s, checks, kept = smoke.gnn_checked(arch_id, shape, cell,
+                                                   params, state, batch)
+    want = smoke.gnn_launches(arch_id, cell.cfg, batch)
+    assert checks.launches == {"sorted_segment_sum": want}
+    assert checks.err["sorted_segment_sum"] == 0.0   # the same op on a CPU
+    assert int(new_s["step"]) == 1
+    assert segsum_ops.sorted_segment_sum.__name__ == "sorted_segment_sum"
+    if arch_id == "equiformer-v2":
+        (data, ids, n), _ = kept["args"]
+        assert tuple(data.shape) == (len(batch["edge_src"]) if "edge_chunk"
+                                     not in changes else 64,
+                                     cell.cfg.d_hidden * cell.cfg.sph_dim)
+        assert n == len(batch["species"]) and not data.requires_grad
+    else:
+        assert not kept
+    expected = {"nequip": {(): 7, ("n_layers",): 3},
+                "equiformer-v2": {(): 15, ("n_layers",): 7,
+                                  ("edge_chunk",): 31}}
+    if arch_id in expected:
+        assert want == expected[arch_id][tuple(changes)]
+
+
+@pytest.mark.parametrize("arch_id,shape", [("gat-cora", "full_graph_sm"),
+                                           ("nequip", "molecule"),
+                                           ("equiformer-v2", "molecule")])
+def test_gnn_against_cpu_passes_the_same_step_and_stops_a_wrong_one(
+        arch_id, shape, monkeypatch):
+    """The card-against-CPU step with the CPU in the card's place passes;
+    the forward's energy (the potentials') or logits (GAT's) scaled by 1 +
+    1e-3 on the card's side fails it."""
+    smoke = _smoke()
+    cell, batch = _gnn_smoke_cell(smoke, arch_id, shape)
+    smoke.gnn_against_cpu(arch_id, shape, cell, batch, card="cpu")
+    mod = smoke.gnn_model(arch_id)
+    fn, seen = mod.forward, []
+    card_calls = 2 if "positions" in batch else 1      # loss, prediction
+
+    def scaled_once(*a, **kw):
+        out = fn(*a, **kw)
+        seen.append(1)
+        if len(seen) > card_calls:
+            return out
+        if isinstance(out, tuple):
+            return (out[0] * (1 + 1e-3), *out[1:])
+        return out * (1 + 1e-3)
+    monkeypatch.setattr(mod, "forward", scaled_once)
+    with pytest.raises(AssertionError, match="differs from the CPU's"):
+        smoke.gnn_against_cpu(arch_id, shape, cell, batch, card="cpu")
+
+
+def test_nearest_pairs_keep_the_molecule_shapes_edges():
+    """Each molecule keeps its ``pairs`` nearest atom pairs, both ways;
+    with every pair kept, the joined batch's edges as a set."""
+    smoke = _smoke()
+    b = smoke.joined_molecules(3, 6, "cpu")
+    cut = smoke.nearest_pairs(b, 3, 6, 4)
+    s, t = cut["edge_src"].long(), cut["edge_dst"].long()
+    assert len(s) == 2 * 3 * 4 and cut["edge_src"].dtype == b["edge_src"].dtype
+    assert bool((s // 6 == t // 6).all()) and bool((s != t).all())
+    assert sorted(zip(s.tolist(), t.tolist())) == \
+        sorted(zip(t.tolist(), s.tolist()))
+    d = (b["positions"][s] - b["positions"][t]).norm(dim=-1)
+    for m in range(3):
+        p = b["positions"][6 * m:6 * m + 6]
+        all_d = torch.pdist(p).sort().values
+        torch.testing.assert_close(d[(s // 6 == m) & (s < t)].sort().values,
+                                   all_d[:4])
+    full = smoke.nearest_pairs(b, 3, 6, 15)
+    assert sorted(zip(full["edge_src"].tolist(),
+                      full["edge_dst"].tolist())) == \
+        sorted(zip(b["edge_src"].tolist(), b["edge_dst"].tolist()))
+
+
+@pytest.mark.parametrize("on", [False, True], ids=["plain", "remat"])
+def test_layer_remat_sets_each_models_layers_and_restores_them(on):
+    """``layer_remat`` runs each layer of either potential plainly or
+    under one checkpoint, whichever the model does itself, and puts the
+    model back."""
+    import torch.utils.checkpoint as ckpt
+    from repro_torch.models.gnn import equiformer_v2, nequip
+    smoke = _smoke()
+    for mod in (nequip, equiformer_v2):
+        layer, own = mod._layer, getattr(mod, "checkpoint", None)
+        with smoke.layer_remat(mod, on):
+            assert (mod._layer is not layer) == on
+            if own is not None:
+                assert mod.checkpoint(lambda x: x + 1, 1,
+                                      use_reentrant=False) == 2
+        assert mod._layer is layer
+        assert getattr(mod, "checkpoint", None) is own
+    assert equiformer_v2.checkpoint is ckpt.checkpoint
+    assert smoke.GNN_MEMORY[-1] == ("equiformer-v2", 12, 64)
+
+
+def test_gnn_checks_stop_at_a_wrong_kernel(monkeypatch):
+    from repro_torch.kernels.segsum import ops as segsum_ops
+    from repro_torch.train.optimizer import init_opt_state
+    smoke = _smoke()
+    cell, batch = _gnn_smoke_cell(smoke, "nequip", "molecule")
+    params = cell.param_init(torch.Generator().manual_seed(0), device="cpu")
+    fn = segsum_ops.sorted_segment_sum
+
+    def wrong(data, ids, n):
+        out = fn(data, ids, n).clone()
+        out[-1, -1] += 1e-3 * (1 + out[-1, -1].abs())
+        return out
+    monkeypatch.setattr(segsum_ops, "sorted_segment_sum", wrong)
+    with pytest.raises(AssertionError, match="not close"):
+        smoke.gnn_checked("nequip", "molecule", cell, params,
+                          init_opt_state(params, cell.opt_cfg), batch)
+
+
+def test_segsum_check_allows_rounding_and_stops_at_a_missing_term():
+    """The f32 check's bound, 2.02 (n - 1) u S: the same terms summed in
+    reverse order (large terms that cancel) pass; a sum missing one term
+    fails; a one-row segment must be exact."""
+    smoke = _smoke()
+    from repro_torch.kernels.segsum import ref
+    g = torch.Generator().manual_seed(0)
+    data = torch.randn(400, 6, generator=g) * 1e4
+    data[::40] = torch.randn(10, 6, generator=g)      # small terms too
+    seg = torch.sort(torch.randint(0, 13, (400,), generator=g,
+                                   dtype=torch.int32)).values
+    want = ref.sorted_segment_sum_ref(data, seg, 13)
+    rev = ref.sorted_segment_sum_ref(data.flip(0), seg.flip(0), 13)
+    # the reversed order rounds differently, within the bound
+    assert not torch.equal(rev, want)
+    assert smoke.check_segsum((data, seg, 13), {}, rev) > 0
+    # a missing large term is far outside it
+    short = ref.sorted_segment_sum_ref(data[1:], seg[1:], 13)
+    with pytest.raises(AssertionError, match="not close"):
+        smoke.check_segsum((data, seg, 13), {}, short)
+    # one row: exact
+    one = torch.tensor([[1.5, -2.0]])
+    ids = torch.tensor([0], dtype=torch.int32)
+    assert smoke.check_segsum((one, ids, 1), {}, one.clone()) == 0.0
+    with pytest.raises(AssertionError, match="not close"):
+        smoke.check_segsum((one, ids, 1), {}, one + 1e-7)
+    bound = smoke.segsum_bound(data, seg, 13)
+    assert bound.shape == (13, 6) and bool((bound > 0).all())
+
+
+@pytest.mark.parametrize("planted", [float("nan"), float("inf")])
+def test_segsum_check_stops_at_a_nan_or_inf(planted):
+    """A NaN or an infinity in the kernel's output, where the plain
+    version's sum is finite, fails the f32 check; infinities that both
+    sides give pass, as ``assert_close`` lets them."""
+    smoke = _smoke()
+    from repro_torch.kernels.segsum import ref
+    g = torch.Generator().manual_seed(0)
+    data = torch.randn(50, 4, generator=g)
+    seg = torch.sort(torch.randint(0, 5, (50,), generator=g,
+                                   dtype=torch.int32)).values
+    got = ref.sorted_segment_sum_ref(data, seg, 5)
+    got[2, 1] = planted
+    with pytest.raises(AssertionError, match="not close.*flat index 9 "):
+        smoke.check_segsum((data, seg, 5), {}, got)
+    data[seg == 3] = float("inf")
+    want = ref.sorted_segment_sum_ref(data, seg, 5)
+    assert bool(torch.isinf(want[3]).all())
+    smoke.check_segsum((data, seg, 5), {}, want.clone())
+
+
+def test_joined_molecules_and_sampled_blocks_keep_the_shapes():
+    smoke = _smoke()
+    from repro_torch.data.pipeline import molecule_batch
+    b = smoke.joined_molecules(3, 5, "cpu")
+    assert tuple(b["positions"].shape) == (15, 3)
+    assert len(b["edge_src"]) == 3 * 20 and int(b["edge_dst"].max()) == 14
+    parts = [molecule_batch(0, i, 5, device="cpu") for i in range(3)]
+    assert float(b["energy"]) == pytest.approx(
+        sum(float(p["energy"]) for p in parts), rel=1e-6)
+    assert torch.equal(b["edge_src"][20:40], parts[1]["edge_src"] + 5)
+    blocks = smoke.sampled_blocks({"n_nodes": 200, "batch_nodes": 6,
+                                   "fanout": (3, 2)}, 7, 4, "cpu")
+    assert [tuple(x.shape) for x in blocks["feat_blocks"]] == [
+        (6, 7), (18, 7), (36, 7)]
+    assert tuple(blocks["labels"].shape) == (6,)
+
+
+def test_gnn_cells_are_the_configs_widths_and_the_row_names_k7():
+    """The phase's cells at CONFIG width, a depth cut and nothing else
+    changed; EquiformerV2 at 2 layers on every joined edge and at all 12
+    on the molecule shape's edges; its JSON row points at the segment-sum
+    kernel."""
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    smoke = _smoke()
+    assert [c[2:] for c in smoke.GNN_CELLS
+            if c[0] == "equiformer-v2"] == [(2, None), (None, 64)]
+    shp = get_arch("equiformer-v2").shapes["molecule"]
+    assert 2 * shp["n_edges"] == 128 == 2 * smoke.GNN_CELLS[-1][3]
+    for arch_id, shape, depth, _ in smoke.GNN_CELLS:
+        cfg = smoke.gnn_cell(arch_id, shape,
+                             **({"n_layers": depth} if depth else {})).cfg
+        full = get_arch(arch_id).config
+        assert cfg.n_layers == (depth or full.n_layers) <= full.n_layers
+        keep = {f.name for f in dataclasses.fields(cfg)} - {
+            "n_layers", "d_in", "sample_sizes"}
+        assert all(getattr(cfg, k) == getattr(full, k) for k in keep)
+    assert get_arch("equiformer-v2").config.n_layers == 12   # restored
+    module = smoke.wrapper_module(smoke.GNN_ROW.split(":")[0])
+    assert module.SOURCE.name == "segsum.cu"

@@ -154,3 +154,69 @@ def test_train_smoke_on_the_card(cuda):
     again = train.main(args)
     torch.testing.assert_close(torch.tensor(again), torch.tensor(got),
                                atol=1e-5, rtol=0)
+
+
+def test_segment_sum_on_the_card_runs_k7_with_its_derivatives(cuda):
+    """``segment_sum`` on CUDA tensors launches the segment-sum kernel, in
+    the forward and in the gradient of the gradient (the gradient itself
+    is a gather), and gives the CPU's values, ids out of range dropped,
+    with no plain call."""
+    from repro_torch.kernels.segsum import ops as segsum_ops
+    from repro_torch.sparse.ops import segment_sum
+    g = torch.Generator().manual_seed(0)
+    data = torch.randn(300, 3, 5, generator=g)
+    ids = torch.randint(-2, 40, (300,), generator=g, dtype=torch.int32)
+    w = torch.randn(37, 3, 5, generator=g)
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        segsum_ops.reset_counts()
+        x = data.to(dev).requires_grad_()
+        y = segment_sum(x, ids.to(dev), 37)
+        loss = torch.sum(torch.sin(y) * w.to(dev))
+        (gx,) = torch.autograd.grad(loss, x, create_graph=True)
+        (ggx,) = torch.autograd.grad(torch.sum(gx ** 2), x)
+        out[dev.type] = [t.detach().cpu() for t in (y, gx, ggx)]
+        if dev.type == "cuda":
+            assert segsum_ops.LAUNCHES["sorted_segment_sum"] == 2
+            assert segsum_ops.ref.sorted_segment_sum_ref.calls == 0
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch_id,shape", [
+    ("gat-cora", "full_graph_sm"), ("graphsage-reddit", "full_graph_sm"),
+    ("nequip", "molecule"), ("equiformer-v2", "molecule")])
+def test_gnn_smoke_step_on_the_card_equals_the_cpu(cuda, arch_id, shape):
+    """One SMOKE train step through ``build_cell(...).fn`` on the card and
+    on the CPU from the same weights and batch: the loss within 1e-5
+    (relative), the parameters within 1e-5, as many kernel launches on the
+    card as plain calls on the CPU, and none of those on the card."""
+    from repro_torch.data.pipeline import (molecule_batch,
+                                           node_classification_data)
+    from repro_torch.kernels.segsum import ops as segsum_ops
+    from repro_torch.launch import steps as S
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.tree import leaves
+    cell = S.build_cell(arch_id, shape, smoke=True)
+    cpu = torch.device("cpu")
+    params = cell.param_init(torch.Generator().manual_seed(0), device=cpu)
+    if shape == "molecule":
+        batch = molecule_batch(0, 0, 10, device=cpu)
+    else:
+        batch = node_classification_data(0, 80, cell.cfg.d_in,
+                                          cell.cfg.n_classes, device=cpu)
+    out = {}
+    for dev in (cpu, cuda):
+        segsum_ops.reset_counts()
+        p = _to(params, dev)
+        new_p, _, loss = cell.fn(p, init_opt_state(p, cell.opt_cfg),
+                                 _to(batch, dev))
+        out[dev.type] = (float(loss), [t.cpu() for t in leaves(new_p)],
+                         segsum_ops.LAUNCHES["sorted_segment_sum"],
+                         segsum_ops.ref.sorted_segment_sum_ref.calls)
+    (l_cpu, p_cpu, _, calls), (l_gpu, p_gpu, launches, plain) = \
+        out["cpu"], out["cuda"]
+    assert abs(l_gpu - l_cpu) <= 1e-5 * max(1.0, abs(l_cpu))
+    for a, b in zip(p_gpu, p_cpu):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+    assert launches == calls > 0 and plain == 0

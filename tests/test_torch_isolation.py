@@ -68,6 +68,18 @@ def test_port_imports_and_mines_with_jax_blocked():
         "                device='cpu').shape == (1, 2)\n"
         "assert serve_recsys(get_arch('dien'), True, 4, 0,\n"
         "                    device='cpu').shape == (4,)\n"
+        "import repro_torch.models.gnn.gat, repro_torch.models.gnn.graphsage\n"
+        "import repro_torch.models.gnn.nequip\n"
+        "import repro_torch.models.gnn.equiformer_v2, repro_torch.sparse\n"
+        "from repro_torch.data.pipeline import molecule_batch\n"
+        "from repro_torch.launch.steps import build_cell\n"
+        "from repro_torch.train.optimizer import init_opt_state\n"
+        "import torch\n"
+        "cell = build_cell('nequip', 'molecule', smoke=True)\n"
+        "p = cell.param_init(torch.Generator(), device='cpu')\n"
+        "b = molecule_batch(0, 0, 6, device='cpu')\n"
+        "loss = cell.fn(p, init_opt_state(p, cell.opt_cfg), b)[2]\n"
+        "assert torch.isfinite(loss)\n"
         "from repro_torch.launch import train\n"
         "for arch in ('qwen3-0.6b', 'dien'):\n"
         "    assert len(train.main(['--arch', arch, '--smoke', '--steps',\n"

@@ -9,7 +9,8 @@ and ``psum_grads`` over four ``gloo`` CPU ranks against JAX's under
 ``jax.vmap(..., axis_name="i")`` on the same four shards; ``lm_batch``
 (stateless by step, labels the rolled tokens, the follow rule, ids in the
 vocab, JAX's share of the frequent ids); DIEN's SMOKE ``loss_fn`` and
-gradients and its train cell; the GNN ids refused by ``build_cell``; and
+gradients and its train cell; every GNN cell built by ``build_cell``
+(meshes refused); and
 ``launch.train``'s fail, resume and clean runs (the resumed overlap equal
 to the clean run exactly).
 """
@@ -340,8 +341,17 @@ def test_dien_train_cell_step():
 
 
 def test_build_cell_refuses_gnn_archs_and_meshes():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TS.build_cell("gat-cora", "full_graph_sm")
+    """Every GNN (arch, shape) cell builds now, a train cell without
+    microbatches under ``OptConfig()``; a mesh still raises."""
+    for arch_id in ("gat-cora", "graphsage-reddit", "nequip",
+                    "equiformer-v2"):
+        for shape in get_arch(arch_id).shapes:
+            cell = TS.build_cell(arch_id, shape)
+            assert (cell.kind, cell.n_micro, cell.opt_cfg) == (
+                "train", 1, TO.OptConfig())
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                TS.build_cell(arch_id, shape, mesh=object())
+    assert TS.build_cell("gat-cora", "full_graph_sm").cfg.d_in == 1433
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TS.build_cell("qwen3-0.6b", "train_4k", mesh=object())
     cell = TS.build_cell("qwen3-0.6b", "train_4k")

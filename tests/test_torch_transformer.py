@@ -216,22 +216,35 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
 
 
 def test_unported_parts_raise():
-    """The GNN archs are not ported yet, their cells neither; every LM and
-    recsys arch resolves, and the training functions are ported."""
+    """Every arch resolves now, the GNN ids to their family and configs
+    (the same fields as the JAX package's, the port's equivariant configs
+    adding ``remat``), their cells build; an unknown id still raises
+    ``KeyError``, a mesh ``NotImplementedError``; the training functions
+    are ported."""
+    from repro.configs import registry as jax_registry
     for arch_id in ("gat-cora", "graphsage-reddit", "nequip",
                     "equiformer-v2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_arch(arch_id)
+        arch, want = get_arch(arch_id), jax_registry.get_arch(arch_id)
+        assert (arch.family, arch.shapes) == ("gnn", want.shapes)
+        for cfg, jax_cfg in ((arch.config, want.config),
+                             (arch.smoke, want.smoke)):
+            assert type(cfg).__name__ == type(jax_cfg).__name__
+            fields = dataclasses.asdict(cfg)
+            assert fields.pop("remat", True) is True
+            assert fields == dataclasses.asdict(jax_cfg)
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
     from repro_torch.data import pipeline
     from repro_torch.launch import steps
     from repro_torch.models.recsys import dien
+    assert steps.build_cell("graphsage-reddit", "minibatch_lg").cfg \
+        .sample_sizes == (15, 10)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        steps.build_cell("graphsage-reddit", "minibatch_lg")
+        steps.build_cell("graphsage-reddit", "minibatch_lg", mesh=object())
     for module, name in ((TT, "loss_fn"), (TT, "loss_fn_chunked"),
                          (TT, "forward_hidden"), (dien, "loss_fn"),
-                         (pipeline, "lm_batch")):
+                         (pipeline, "lm_batch"), (pipeline, "molecule_batch"),
+                         (pipeline, "node_classification_data")):
         assert callable(getattr(module, name))
     assert [get_arch(a).family for a in (
         "deepseek-moe-16b", "kimi-k2-1t-a32b", "yi-34b",
