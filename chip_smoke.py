@@ -14,7 +14,8 @@ Phases (any failure raises, and the script exits non-zero):
               registers, spills, stack and shared memory of each of the 45
               pruned-kernel instantiations (wrapper, predicate, probe
               mode), which the timing lines and the kernels' JSON record
-              repeat beside each timed instantiation.
+              repeat beside each timed instantiation, and of each of the
+              segment sum's kernels.
 3. kernels  — TC and 4-CF run cold and warm through ``Miner.run`` with
               every kernel launch held against its plain PyTorch version
               on the same inputs on the card, bit for bit, at the shapes
@@ -268,14 +269,16 @@ Phases (any failure raises, and the script exits non-zero):
               within the summation bound of ``check_segsum``), 3 counted
               steps (loss, wall time, peak, the launches a step equal to
               ``gnn_launches``, no plain call), a profile of one
-              full-depth EquiformerV2 step, and one step on the card
-              against the CPU (the molecules cut to 8, 1 and 1): losses
-              within 1e-4 (relative), unclipped gradients and the update
-              within 1e-3 of their norms, the potentials' energy and
-              forces within 1e-4.  The kernel timed on EquiformerV2's
-              layer-0 aggregation over the 111,360 edges beside its plain
-              version and ``index_add_`` (the JSON row
-              ``sorted_segment_sum:gnn``).
+              2-layer EquiformerV2 step (the segment sum's share
+              printed), and one step on the card against the CPU (the
+              molecules cut to 8, 1 and 1): losses within 1e-4 (relative), unclipped gradients
+              and the update within 1e-3 of their norms, the potentials'
+              energy and forces within 1e-4.  The kernel timed beside its
+              plain version and ``index_add_`` on EquiformerV2's layer-0
+              aggregation over the 111,360 edges (the JSON row
+              ``sorted_segment_sum:gnn``) and over the 12-layer cell's
+              16,384, and on NequIP's widest message (``[111,360,
+              160]``).
 
 The line before the last two is the kernels' JSON record; the line before
 the last is ``nvidia-smi``'s name and power limit; the last line is
@@ -285,7 +288,8 @@ repository around this file, it exits non-zero and prints no result.
 ``python3 chip_smoke.py --gnn-memory`` runs only the potentials' train
 steps of ``GNN_MEMORY`` (the layers run plainly and under
 ``torch.utils.checkpoint``, on the joined molecules and on the molecule
-shape's edge count) and prints their times, K7 launches and peaks.
+shape's edge count) and prints their times, K7 launches and peaks, and a
+profile of a step of each run the way the model runs its layers.
 """
 from __future__ import annotations
 
@@ -871,6 +875,8 @@ ENUM_RESOURCES: dict = {}
 # the intersection kernel's build.kernel_resources entry, filled by the
 # build phase
 K6_RESOURCES: dict = {}
+# K7's kernels (mangled names) in segsum.cu's report
+K7_RESOURCES: dict = {}
 
 
 def instance_resources(report: str) -> dict:
@@ -1290,10 +1296,11 @@ def fsm_main_path(graph, min_support: int, want: list[int],
     return count, plans
 
 
-def profile_call(fn, label: str) -> None:
+def profile_call(fn, label: str, also: str = "") -> None:
     """Device time by kernel, the device's idle share and the count of
     device operations over one call of ``fn`` (``torch.profiler``; says so
-    when it records no device time)."""
+    when it records no device time): the ten kernels that take the most,
+    then any other whose name holds ``also``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1315,9 +1322,11 @@ def profile_call(fn, label: str) -> None:
     log(f"[profile] {label}: wall {wall_us:.0f} us, device busy "
         f"{busy_us:.0f} us, idle share {1 - busy_us / wall_us:.3f}, "
         f"{sum(r[2] for r in rows)} device operations")
-    for key, us, count in sorted(rows, key=lambda r: -r[1])[:10]:
-        log(f"[profile]   {us:10.0f} us {100 * us / busy_us:5.1f}% "
-            f"x{count:<3d} {key[:90]}")
+    rows.sort(key=lambda r: -r[1])
+    for i, (key, us, count) in enumerate(rows):
+        if i < 10 or also and also in key:
+            log(f"[profile]   {us:10.0f} us {100 * us / busy_us:5.1f}% "
+                f"x{count:<3d} {key[:90]}")
 
 
 def profile_warm(graph, app, label: str, backend: str = "cuda") -> None:
@@ -3870,8 +3879,10 @@ GNN_STEPS = 3
 GNN_ROW = "sorted_segment_sum:gnn"     # K7 on EquiformerV2's aggregation
 # the CPU side of the card-against-CPU step: molecules of the batch kept
 GNN_CPU_MOLECULES = {"nequip": 8, "equiformer-v2": 1}
-# the cell whose step is profiled: EquiformerV2 at full depth
-GNN_PROFILED = ("equiformer-v2", None)
+# the cell whose step is profiled: EquiformerV2 at 2 layers (9 s; the
+# 12-layer step's profile takes 30 s, so it and NequIP's run in
+# ``--gnn-memory``)
+GNN_PROFILED = ("equiformer-v2", 2)
 
 
 def gnn_cell(arch_id: str, shape_name: str, smoke: bool = False,
@@ -3990,15 +4001,18 @@ def gnn_launches(arch_id: str, cfg, batch: dict) -> int:
 def first_launch(pred):
     """While active, keeps the arguments of the first
     ``sorted_segment_sum`` call for which ``pred(data)`` holds in
-    ``kept``; the call runs as is."""
+    ``kept["args"]``, and the number of such calls in
+    ``kept["launches"]``; the calls run as they are."""
     from repro_torch.kernels.segsum import ops
     fn = ops.sorted_segment_sum
     kept: dict = {}
 
     def run(*a, **kw):
-        if not kept and pred(a[0]):
-            kept["args"] = (tuple(t.detach() if hasattr(t, "detach") else t
-                                  for t in a), kw)
+        if pred(a[0]):
+            if not kept:
+                kept["args"] = (tuple(t.detach() if hasattr(t, "detach")
+                                      else t for t in a), kw)
+            kept["launches"] = kept.get("launches", 0) + 1
         return fn(*a, **kw)
     ops.sorted_segment_sum = run
     try:
@@ -4135,15 +4149,27 @@ def gnn_counted(arch_id: str, label: str, cell, params, state,
     return launches
 
 
+def timed_width(arch_id: str, cfg) -> int:
+    """The width of the cell's K7 launches that the phase times:
+    EquiformerV2's aggregation (``C (l_max+1)^2`` columns), NequIP's
+    widest message (``C (2 l_max + 1)``); 0 (none) for the others."""
+    if arch_id == "equiformer-v2":
+        return cfg.d_hidden * cfg.sph_dim
+    if arch_id == "nequip":
+        return cfg.d_hidden * (2 * cfg.l_max + 1)
+    return 0
+
+
 def gnn_checked(arch_id: str, label: str, cell, params, state,
                 batch: dict):
     """One step of the cell with every K7 launch held against its plain
-    version, as many launches as ``gnn_launches`` says; EquiformerV2's
-    first aggregation launch (``[E, C (l_max+1)^2]`` rows, layer 0's) kept
-    as ``kept["args"]``.  Returns the new params and state, the checks and
-    ``kept``."""
+    version, as many launches as ``gnn_launches`` says; the first launch
+    at ``timed_width`` (EquiformerV2's layer-0 aggregation, NequIP's
+    layer-0 l_max message) kept as ``kept["args"]``, and the step's
+    launches at that width counted in ``kept["launches"]``.  Returns the
+    new params and state, the checks and ``kept``."""
     cfg = cell.cfg
-    width = getattr(cfg, "d_hidden", 0) * getattr(cfg, "sph_dim", 0)
+    width = timed_width(arch_id, cfg)
     checks = KernelChecks(names=tuple(SEGSUM_REPLACES))
     with first_launch(lambda d: width and d.shape[1] == width) as kept:
         with checks:
@@ -4161,9 +4187,12 @@ def gnn_phase() -> tuple[dict, int, float]:
     """The [gnn] phase: each GNN cell of ``GNN_CELLS`` through
     ``build_cell(...).fn`` at CONFIG width in f32 (seed 0): one step with
     every K7 launch held against its plain version, ``GNN_STEPS`` counted
-    steps, one step on the card against the CPU; K7 timed on
-    EquiformerV2's layer-0 aggregation on all the joined edges.  Returns
-    the timing row, the counted launches and the checks' largest error."""
+    steps, one step on the card against the CPU; K7 timed on the first
+    launch at ``timed_width`` of each cell that has one: EquiformerV2's
+    layer-0 aggregation on all the joined edges (the timing row) and on
+    the 12-layer cell's nearest pairs, and NequIP's widest message.
+    Returns the timing row, the counted launches and the checks' largest
+    error."""
     import torch
     from repro_torch.configs.registry import get_arch
     from repro_torch.train.optimizer import init_opt_state
@@ -4192,8 +4221,13 @@ def gnn_phase() -> tuple[dict, int, float]:
         params, state, checks, kept = gnn_checked(arch_id, label, cell,
                                                   params, state, batch)
         err = max(err, checks.err["sorted_segment_sum"])
-        if kept and row is None:
-            row = time_segsum(kept.pop("args")[0], " gnn", reps=(10, 3))
+        if kept:
+            log(f"[gnn] {arch_id} {label}: {kept['launches']} K7 launches "
+                f"a step at width {timed_width(arch_id, cfg)}")
+            timed = time_segsum(kept.pop("args")[0],
+                                f" gnn {arch_id} {label}", reps=(10, 3))
+            if arch_id == "equiformer-v2" and row is None:
+                row = timed
         kept.clear()
         torch.cuda.empty_cache()
         parts.append(time.perf_counter())
@@ -4201,7 +4235,7 @@ def gnn_phase() -> tuple[dict, int, float]:
         parts.append(time.perf_counter())
         if (arch_id, depth) == GNN_PROFILED:
             profile_call(lambda: cell.fn(params, state, batch),
-                         f"gnn {arch_id} {label} step")
+                         f"gnn {arch_id} {label} step", also="segsum")
         parts.append(time.perf_counter())
         del params, state
         torch.cuda.empty_cache()
@@ -4275,7 +4309,9 @@ def gnn_memory() -> None:
     """Each ``GNN_MEMORY`` cell at CONFIG width in f32: two train steps
     from seed 0 with the layers run plainly and under checkpoints
     (``layer_remat``), each step's wall time and K7 launches and the two
-    steps' peak printed (or that the card ran out of memory)."""
+    steps' peak printed (or that the card ran out of memory); then, the
+    way the model runs its layers itself, a profile of a third step (the
+    segment sum's share printed)."""
     import torch
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels.segsum import ops
@@ -4283,6 +4319,7 @@ def gnn_memory() -> None:
 
     smi = nvidia_smi_line()
     for arch_id, depth, pairs in GNN_MEMORY:
+        own = hasattr(gnn_model(arch_id), "checkpoint")    # its own remat
         cell = gnn_cell(arch_id, "molecule", n_layers=depth)
         shp = get_arch(arch_id).shapes["molecule"]
         batch = joined_molecules(shp["batch"], shp["n_nodes"], "cuda")
@@ -4310,6 +4347,10 @@ def gnn_memory() -> None:
                             f"{ops.LAUNCHES['sorted_segment_sum']}")
                 log(f"{label}: peak {torch.cuda.max_memory_allocated()} B "
                     f"({smi})")
+                if remat == own:
+                    with layer_remat(gnn_model(arch_id), remat):
+                        profile_call(lambda: cell.fn(params, state, batch),
+                                     f"{label} step", also="segsum")
             except torch.cuda.OutOfMemoryError:
                 log(f"{label}: out of memory, peak "
                     f"{torch.cuda.max_memory_allocated()} B ({smi})")
@@ -4350,6 +4391,7 @@ def main() -> int:
         from repro_torch.kernels import build
         from repro_torch.kernels.extend_fused import ops
         from repro_torch.kernels.intersect import ops as intersect_ops
+        from repro_torch.kernels.segsum import ops as segsum_ops
     except ImportError as exc:
         print(f"chip_smoke: the repro_torch package is not beside this "
               f"script ({exc})", file=sys.stderr)
@@ -4376,7 +4418,18 @@ def main() -> int:
         elif src == intersect_ops.SOURCE:
             (res,) = build.kernel_resources(report).values()
             K6_RESOURCES.update(res)
+        elif src == segsum_ops.SOURCE:
+            K7_RESOURCES.update(build.kernel_resources(report))
     log(f"[build] {time.perf_counter() - t0:.1f} s")
+    for name, res in sorted(K7_RESOURCES.items()):
+        if m := re.search(r"segsum_kernelI(f|13__nv_bfloat16)Lb([01])E",
+                          name):
+            name = (f"segsum_kernel {'f32' if m[1] == 'f' else 'bf16'} "
+                    f"{'16-byte' if m[2] == '1' else 'scalar'} loads")
+        log(f"[build] sorted_segment_sum {name}: {res['registers']} "
+            f"registers, spills {res['spill_stores']} / "
+            f"{res['spill_loads']} B, stack {res['stack']} B, smem "
+            f"{res['smem']} B")
     log(f"[build] intersect_count: {K6_RESOURCES['registers']} registers, "
         f"spills {K6_RESOURCES['spill_stores']} / "
         f"{K6_RESOURCES['spill_loads']} B, stack {K6_RESOURCES['stack']} B, "

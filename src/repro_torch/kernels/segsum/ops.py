@@ -4,14 +4,17 @@
 ids int32 ``[N]``, both contiguous, on one device) and dispatches on that
 device: a CPU tensor runs the plain version in ``ref.py``; a CUDA tensor
 launches the kernel of ``csrc/segsum.cu`` on the current stream, or raises.
-``LAUNCHES`` counts its kernel launches and nothing else.  The library is
-built and loaded at the first launch, never at import.
+``LAUNCHES`` counts its wrapper's launches (one a call, however many CUDA
+kernels the C function starts) and nothing else.  ``tile_plan`` cuts the
+rows into the kernel's grid on the host.  The library is built and loaded
+at the first launch, never at import.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -27,11 +30,74 @@ _I = ctypes.c_int
 LAUNCHES = {"sorted_segment_sum": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+SMS = 132                 # an H100's SMs
+CTAS_PER_SM = 4           # resident 256-thread CTAs at up to 64 registers
+WAVES = 4                 # CTAs the grid should give, in waves of SMS x 4
+THREADS = 256             # a CTA
+MIN_CTA_BYTES = 64 << 10  # a CTA reads at least this much where n allows
+MAX_GROUP_ROWS = 256
+
+
+class TilePlan(NamedTuple):
+    """The kernel's grid: ``row_tiles`` x ``col_tiles`` CTAs of ``THREADS``
+    threads in groups of ``lanes`` lanes; a group sums ``group_rows``
+    consecutive rows of a column tile ``lanes * per_lane`` wide, with
+    16-byte loads if ``vector``."""
+    vector: bool
+    per_lane: int
+    lanes: int
+    group_rows: int
+    row_tiles: int
+    col_tiles: int
+
+    @property
+    def tile_rows(self) -> int:
+        return THREADS // self.lanes * self.group_rows
+
+    @property
+    def tile_cols(self) -> int:
+        return self.lanes * self.per_lane
+
+
+def tile_plan(n: int, d: int, elem_size: int, address: int) -> TilePlan:
+    """The grid of ``csrc/segsum.cu`` for ``n`` rows of ``d`` elements of
+    ``elem_size`` bytes at ``address``: a lane holds 16 bytes of a row
+    (``per_lane`` columns), on the 16-byte path if a row is a whole number
+    of 16-byte vectors and ``address`` is 16-byte aligned; a row group has
+    the fewest lanes (a power of two up to 32) that reach across the row,
+    and a wider row is cut into column tiles of 32 lanes; ``group_rows`` is
+    the largest power of two up to ``MAX_GROUP_ROWS`` (or the least that
+    reads ``MIN_CTA_BYTES`` a CTA, if more) that still gives ``WAVES``
+    waves of CTAs, and at least that least."""
+    per_lane = 16 // elem_size
+    vector = (d * elem_size) % 16 == 0 and address % 16 == 0
+    lanes = 1
+    while lanes < 32 and lanes * per_lane < d:
+        lanes *= 2
+    width = lanes * per_lane
+    col_tiles = -(-d // width)
+    groups = THREADS // lanes
+    row_bytes = max(1, min(d, width) * elem_size * groups)
+    least = 1
+    while least * row_bytes < MIN_CTA_BYTES:
+        least *= 2
+    want = WAVES * SMS * CTAS_PER_SM
+    rows = max(least, MAX_GROUP_ROWS)
+
+    def tiles(g: int) -> int:
+        return -(-n // (groups * g))
+    while rows > least and tiles(rows) * col_tiles < want:
+        rows //= 2
+    return TilePlan(vector, per_lane, lanes, rows, tiles(rows), col_tiles)
+
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = build.load(SOURCE)
+def _lib(source: Path = SOURCE) -> ctypes.CDLL:
+    """The built library of ``source`` (by default the repository's
+    ``csrc/segsum.cu``; ``bench.py`` passes other builds), bound."""
+    lib = build.load(source)
     lib.sorted_segment_sum.argtypes = [_P, _P, ctypes.c_longlong, _I, _I, _I,
+                                       _I, _I, _I, ctypes.c_longlong, _I,
                                        _P, _P, _P]
     lib.sorted_segment_sum.restype = ctypes.c_int
     lib.segsum_error_string.argtypes = [_I]
@@ -68,10 +134,13 @@ def sorted_segment_sum(data, seg_ids, n_segments: int):
     acc = torch.empty(n_segments, d, dtype=torch.float32, device=data.device)
     out = acc if data.dtype == torch.float32 else torch.empty(
         n_segments, d, dtype=data.dtype, device=data.device)
+    plan = tile_plan(n, d, data.element_size(), data.data_ptr())
     lib = _lib()
     launch("sorted_segment_sum", lib.sorted_segment_sum,
            lib.segsum_error_string, data.data_ptr(), seg_ids.data_ptr(), n, d,
-           n_segments, _DTYPES[data.dtype], acc.data_ptr(), out.data_ptr())
+           n_segments, _DTYPES[data.dtype], int(plan.vector), plan.lanes,
+           plan.group_rows, plan.row_tiles, plan.col_tiles, acc.data_ptr(),
+           out.data_ptr())
     LAUNCHES["sorted_segment_sum"] += 1
     return out
 

@@ -966,6 +966,16 @@ def test_gnn_checks_hold_and_count_every_k7_launch(arch_id, shape, changes):
                                      not in changes else 64,
                                      cell.cfg.d_hidden * cell.cfg.sph_dim)
         assert n == len(batch["species"]) and not data.requires_grad
+        assert kept["launches"] >= 1
+    elif arch_id == "nequip":
+        # the l_max message: each layer's forward sum, and its gradient's
+        # gradient in every layer but the last
+        (data, ids, n), _ = kept["args"]
+        cfg = cell.cfg
+        assert tuple(data.shape) == (len(batch["edge_src"]),
+                                     cfg.d_hidden * (2 * cfg.l_max + 1))
+        assert n == len(batch["species"]) and not data.requires_grad
+        assert kept["launches"] == 2 * cfg.n_layers - 1
     else:
         assert not kept
     expected = {"nequip": {(): 7, ("n_layers",): 3},

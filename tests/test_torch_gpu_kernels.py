@@ -1018,7 +1018,10 @@ def _segsum_inputs(device, n, d, s, dtype, sort=True, seed=0):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n,d,s", [(1000, 64, 37), (257, 128, 5),
                                    (64, 8, 64), (100_000, 100, 4000),
-                                   (3000, 200, 1)])
+                                   (3000, 200, 1), (5000, 1, 300),
+                                   (5000, 7, 300), (5000, 8, 300),
+                                   (5000, 32, 300), (3000, 160, 100),
+                                   (700, 6272, 40)])
 def test_sorted_segment_sum_matches_plain(cuda, n, d, s, dtype, sort):
     dt = getattr(torch, dtype)
     data, seg = _segsum_inputs(cuda, n, d, s, dt, sort)
@@ -1033,6 +1036,71 @@ def test_sorted_segment_sum_matches_plain(cuda, n, d, s, dtype, sort):
     # thousand unit normals agree to 1e-4; bf16 rounds both once at the end
     tol = dict(atol=1e-4, rtol=1e-5) if dt == torch.float32 else {}
     torch.testing.assert_close(got, want, **tol)
+
+
+def _exact_segsum_case(cuda, dt, n, d, s, ids, offset=0):
+    """Integer-valued rows (sums exact in f32 in any order, and in bf16
+    rounded once) at ``offset`` elements into their storage, the kernel's
+    output against the plain version's, equal; one counted launch and no
+    plain call."""
+    g = torch.Generator(cuda).manual_seed(1)
+    flat = torch.randint(-4, 5, (offset + n * d,), generator=g, device=cuda)
+    data = flat.to(dt)[offset:].view(n, d)
+    assert data.is_contiguous()
+    segsum_ops.reset_counts()
+    got = segsum_ops.sorted_segment_sum(data, ids, s)
+    torch.cuda.synchronize()
+    assert segsum_ops.LAUNCHES["sorted_segment_sum"] == 1
+    assert segsum_ref.sorted_segment_sum_ref.calls == 0
+    want = segsum_ref.sorted_segment_sum_ref(data, ids, s)
+    assert got.dtype == dt and got.shape == (s, d)
+    assert torch.equal(got, want)
+    return data
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [100, 6272, 7])
+def test_sorted_segment_sum_runs_past_a_row_tile(cuda, dtype, d):
+    """Three runs, each longer than the plan's row tile, so each is cut by
+    tile edges and added from several CTAs; sorted and unsorted."""
+    dt = getattr(torch, dtype)
+    n = 3 * segsum_ops.tile_plan(20_000, d, dt.itemsize, 0).tile_rows + 17
+    assert segsum_ops.tile_plan(n, d, dt.itemsize, 0).tile_rows < n // 3
+    ids = torch.arange(n, device=cuda, dtype=torch.int32) * 3 // n
+    _exact_segsum_case(cuda, dt, n, d, 3, ids)
+    perm = torch.randperm(n, generator=torch.Generator(cuda).manual_seed(2),
+                          device=cuda)
+    _exact_segsum_case(cuda, dt, n, d, 3, ids[perm].contiguous())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sorted_segment_sum_leaves_empty_segments_zero(cuda, dtype):
+    """100,000 segments for 3,000 rows, most empty, with ids -1 and
+    n_segments among them: every empty segment comes out zero."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(cuda).manual_seed(3)
+    ids = torch.sort(torch.randint(-1, 100_001, (3000,), generator=g,
+                                   device=cuda, dtype=torch.int32)).values
+    _exact_segsum_case(cuda, dt, 3000, 64, 100_000, ids)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [8, 100, 6272])
+def test_sorted_segment_sum_takes_a_misaligned_view(cuda, dtype, d):
+    """A contiguous view one element into its storage (4- or 2-byte but
+    not 16-byte aligned) takes the scalar loads and sums right; the same
+    rows at an aligned address take the 16-byte loads where a row is a
+    whole number of 16-byte vectors."""
+    dt = getattr(torch, dtype)
+    n = 2000
+    ids = torch.sort(torch.randint(0, 50, (n,), device=cuda,
+                                   dtype=torch.int32)).values
+    data = _exact_segsum_case(cuda, dt, n, d, 50, ids, offset=1)
+    assert data.data_ptr() % 16 != 0
+    assert not segsum_ops.tile_plan(n, d, dt.itemsize, data.data_ptr()).vector
+    aligned = _exact_segsum_case(cuda, dt, n, d, 50, ids)
+    assert segsum_ops.tile_plan(n, d, dt.itemsize, aligned.data_ptr()
+                                ).vector == ((d * dt.itemsize) % 16 == 0)
 
 
 def test_sorted_segment_sum_refuses(cuda):
