@@ -190,12 +190,16 @@ Phases (any failure raises, and the script exits non-zero):
               tensor-core variant, no plain call), its prefill time,
               decode rate and peak memory; a profile of set A's prefill
               and of one decode step; then the model in f32 (batch 1,
-              prompt 512, TF32 off, the FMA variant): prefill on the
-              kernel against prefill on the plain attention (last-token
-              logits within 1e-3) and the same 8 greedy tokens, and the FMA
+              prompt 512, TF32 off, the f32 variant ``fma``): prefill on
+              the kernel against prefill on the plain attention (last-token
+              logits within 1e-3) and the same 8 greedy tokens, and the f32
               variant timed on that prefill's layer-0 arguments beside the
-              plain version and ``scaled_dot_product_attention``, its bound
-              on the f32 FMA pipes.
+              plain version and ``scaled_dot_product_attention`` (the JSON
+              row ``flash_attention:f32``, its bound the 3xTF32 products
+              at the TF32 tensor-core rate, the FMA pipes' figure beside
+              it), then at the f32 bench's ``long`` shape; the ``[build]``
+              lines give ``flash_fma``'s and ``flash_fma_merge``'s
+              registers.
 15. moe     — DeepSeek-MoE-16B at full width in bf16 (random weights from
               seed 0; 16,669,853,696 parameters, 33.3 GB) through
               ``serve_lm``: sets A and B with every ``flash_attention``
@@ -310,6 +314,7 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core rate
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32 rate outside the tensor
                                 # cores (the FMA pipes)
+TF32_FLOPS_PER_S = 495e12       # H100 SXM dense TF32 tensor-core rate
 TPU_KERNEL = "src/repro/kernels/extend_fused/extend.py"
 REPLACES = {"extend_candidates": f"{TPU_KERNEL}:65",
             "extend_count": f"{TPU_KERNEL}:505",
@@ -877,6 +882,17 @@ ENUM_RESOURCES: dict = {}
 K6_RESOURCES: dict = {}
 # K7's kernels (mangled names) in segsum.cu's report
 K7_RESOURCES: dict = {}
+# K8's f32 kernels (mangled names) in flash.cu's report
+FMA_RESOURCES: dict = {}
+
+
+def fma_resources(d: int) -> dict:
+    """``flash_fma``'s registers and spills at head dim ``d`` (the build
+    phase's report)."""
+    for name, res in FMA_RESOURCES.items():
+        if re.search(rf"flash_fmaILi{d}E", name):
+            return {key: res[key] for key in RESOURCE_KEYS}
+    raise AssertionError(f"no flash_fma<{d}> in the build report")
 
 
 def instance_resources(report: str) -> dict:
@@ -2908,18 +2924,21 @@ def lm_checked(arch, sets=LM_SETS, smoke: bool = False, device=None,
 
 # the kernel variant a flash_attention launch of each dtype must run
 FLASH_VARIANTS = {"bfloat16": "tensor_core", "float32": "fma"}
+F32_FLASH_ROW = "flash_attention:f32"   # K8's f32 variant, [lm] f32 layer 0
 
 
-def time_flash(a, kw, plain: bool = True) -> dict:
+def time_flash(a, kw, plain: bool = True, lib_reps: int = 10) -> dict:
     """CUDA-event times of the kernel, its plain version (unless ``plain``
-    is False) and ``scaled_dot_product_attention`` on one launch's
-    arguments, the kernel's output held against the plain version's (at
-    the checks' tolerance), the variant the timed launches ran, and the
-    bound: the larger of the flops at the rate of the variant's pipes
-    (bf16 on the tensor cores, f32 on the FMA pipes) and the bytes at the
-    memory rate.  The flops are 4 d per (query, key) pair: the tensor-core
-    variant's extra product for the split P (P_lo V) is not counted as
-    work."""
+    is False) and ``scaled_dot_product_attention`` (``lib_reps`` calls) on
+    one launch's arguments, the kernel's output held against the plain
+    version's (at the checks' tolerance), the variant the timed launches
+    ran, and the bound: the larger of the products at the rate of the
+    pipes the variant runs them on and the bytes at the memory rate.  The
+    flops are 4 d per (query, key) pair.  bf16 runs them once on the
+    tensor cores (its extra product for the split P, P_lo V, is not
+    counted as work); f32 runs them three times, as 3xTF32, at the TF32
+    tensor-core rate, and its line also gives the figure on the FMA pipes
+    (the flops once at the f32 rate), which the JSON row does not use."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
@@ -2936,7 +2955,8 @@ def time_flash(a, kw, plain: bool = True) -> dict:
         raise AssertionError(f"flash_attention {q.dtype}: ran {ran}, not "
                              f"{want_variant}")
     lib_ms, lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=kw.get("causal", True), enable_gqa=True), reps=10)
+        q, k, v, is_causal=kw.get("causal", True), enable_gqa=True),
+        reps=lib_reps)
     plain_ms = err = None
     plain_msg = "plain not timed"
     if plain:
@@ -2952,20 +2972,22 @@ def time_flash(a, kw, plain: bool = True) -> dict:
     del got, lib
     flops = 4 * b * hq * d * attention_pairs(lq, lk, kw.get("causal", True))
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    rate = (BF16_FLOPS_PER_S if q.dtype == torch.bfloat16
-            else F32_FLOPS_PER_S)
-    bound_s = {"operations": flops / rate, "bytes": nbytes / HBM_BYTES_PER_S}
+    ops_s = (flops / BF16_FLOPS_PER_S if q.dtype == torch.bfloat16
+             else 3 * flops / TF32_FLOPS_PER_S)
+    bound_s = {"operations": ops_s, "bytes": nbytes / HBM_BYTES_PER_S}
     bound_by = max(bound_s, key=bound_s.get)
     row = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "bound_ms": bound_s[bound_by] * 1e3, "bound_by": bound_by,
            "max_abs_err": err}
+    fma = ("" if q.dtype == torch.bfloat16 else
+           f" (3xTF32; FMA pipes {flops / F32_FLOPS_PER_S * 1e3:.4f} ms)")
     log(f"[timing] flash_attention (q {tuple(q.shape)}, k {tuple(k.shape)}, "
         f"{q.dtype}, variant {want_variant}): {ms:.3f} ms "
         f"({flops / ms / 1e9:.1f} TFLOP/s, {row['bound_ms'] / ms:.3f} of the "
         f"bound; scaled_dot_product_attention {lib_ms:.3f} ms, "
         f"{flops / lib_ms / 1e9:.1f} TFLOP/s; {plain_msg}), bound "
-        f"{row['bound_ms']:.4f} ms by {bound_by}: {flops} flops, {nbytes} "
-        f"B), max_abs_err {err if err is None else f'{err:.3g}'}")
+        f"{row['bound_ms']:.4f} ms by {bound_by}{fma}: {flops} flops, "
+        f"{nbytes} B), max_abs_err {err if err is None else f'{err:.3g}'}")
     torch.cuda.empty_cache()
     return row
 
@@ -3077,15 +3099,17 @@ def route_flips(a: list, b: list) -> int:
 
 
 def lm_f32_end_to_end(arch, prompt_len: int = 512, gen: int = 8,
-                      n_layers: int | None = None,
-                      timed: bool = True) -> None:
+                      n_layers: int | None = None, timed: bool = True):
     """The full-width model in f32 (TF32 off), its first ``n_layers``
     layers when given: prefill on the kernel against prefill on the plain
     attention, last-token logits within 1e-3, and the same greedy tokens
     from ``serve_lm``.  A MoE model also counts the router flips, the
     (token, layer) expert sets that differ between the two runs: a near-tie
     in the router turns on attention differences of 1e-6, so a mismatch
-    fails the check only where no route flipped."""
+    fails the check only where no route flipped.  If ``timed``, the f32
+    variant is timed on layer 0's launch and at the f32 bench's ``long``
+    shape; returns layer 0's timing row (or None) and the kernel run's
+    launches."""
     import torch
     from repro_torch.kernels.flash_attention import ops, ref
     from repro_torch.launch.serve import serve_lm
@@ -3137,16 +3161,32 @@ def lm_f32_end_to_end(arch, prompt_len: int = 512, gen: int = 8,
         raise AssertionError(f"lm f32: kernel launches "
                              f"{ops.VARIANT_LAUNCHES}, not the FMA variant "
                              f"once a layer a prefill")
+    launches = ops.VARIANT_LAUNCHES["fma"]
     del params, runs
     torch.cuda.empty_cache()
+    row = None
     if timed:
-        # the f32 variant timed on layer 0's launch of the prefill
+        # the f32 variant timed on layer 0's launch of the prefill, then
+        # at the f32 bench's long shape
         (a, kw), = layer0
         log(f"[timing] lm f32 prompt {prompt_len}, layer 0 "
             f"({nvidia_smi_line()}):")
-        time_flash(a, kw)
+        row = time_flash(a, kw)
         del a, kw
+        time_fma_long()
     del layer0
+    return row, launches
+
+
+def time_fma_long() -> None:
+    """``time_flash`` (kernel, and SDPA at 3 calls) at the f32 bench's
+    ``long`` shape, the bench's inputs (the bench times ``chunk`` too)."""
+    from repro_torch.kernels.flash_attention import bench
+
+    shape = bench.SHAPES["long"]
+    log("[timing] f32 bench shape long:")
+    time_flash(bench.inputs(shape), {"causal": shape[-1]}, plain=False,
+               lib_reps=3)
 
 
 # ---------------------------------------------------------------------------
@@ -4392,6 +4432,7 @@ def main() -> int:
         from repro_torch.kernels.extend_fused import ops
         from repro_torch.kernels.intersect import ops as intersect_ops
         from repro_torch.kernels.segsum import ops as segsum_ops
+        from repro_torch.kernels.flash_attention import ops as flash_ops
     except ImportError as exc:
         print(f"chip_smoke: the repro_torch package is not beside this "
               f"script ({exc})", file=sys.stderr)
@@ -4420,7 +4461,18 @@ def main() -> int:
             K6_RESOURCES.update(res)
         elif src == segsum_ops.SOURCE:
             K7_RESOURCES.update(build.kernel_resources(report))
+        elif src == flash_ops.SOURCE:
+            FMA_RESOURCES.update(
+                (name, res) for name, res in
+                build.kernel_resources(report).items() if "flash_fma" in name)
     log(f"[build] {time.perf_counter() - t0:.1f} s")
+    for name, res in sorted(FMA_RESOURCES.items()):
+        m = re.search(r"(flash_fma(?:_merge)?)ILi(\d+)E", name)
+        smem = ("" if m[1] != "flash_fma" else
+                f", dynamic smem {flash_ops._lib().flash_fma_smem(int(m[2]))} B")
+        log(f"[build] flash_attention {m[1]} d={m[2]}: {res['registers']} "
+            f"registers, spills {res['spill_stores']} / "
+            f"{res['spill_loads']} B, stack {res['stack']} B{smem}")
     for name, res in sorted(K7_RESOURCES.items()):
         if m := re.search(r"segsum_kernelI(f|13__nv_bfloat16)Lb([01])E",
                           name):
@@ -4624,7 +4676,8 @@ def main() -> int:
     launches["flash_attention"] = sum(lm_main(arch, label)
                                       for label in LM_SETS)
     profile_lm(arch)
-    lm_f32_end_to_end(arch)
+    timing[F32_FLASH_ROW], launches[F32_FLASH_ROW] = lm_f32_end_to_end(arch)
+    timing[F32_FLASH_ROW].update(fma_resources(128))
     log(f"[lm] phase {time.perf_counter() - t_phase:.1f} s")
     torch.cuda.empty_cache()
 
@@ -4667,6 +4720,7 @@ def main() -> int:
     errs["flash_attention"] = max(errs["flash_attention"], moe_err,
                                   train_err)
     errs[K3_CF_ROW] = errs["extend_candidates"]
+    errs[F32_FLASH_ROW] = timing[F32_FLASH_ROW]["max_abs_err"]
     # the K3 row at 4-CF's level 3 counts the launches at its shape
     if sum(K3_SHAPES.values()) != launches["extend_candidates"]:
         raise AssertionError(f"K3 launches by shape {dict(K3_SHAPES)}, not "
@@ -4684,6 +4738,7 @@ def main() -> int:
                            **INTERSECT_REPLACES, **FLASH_REPLACES,
                            MOE_FLASH_ROW: FLASH_REPLACES["flash_attention"],
                            TRAIN_FLASH_ROW: FLASH_REPLACES["flash_attention"],
+                           F32_FLASH_ROW: FLASH_REPLACES["flash_attention"],
                            **SEGSUM_REPLACES,
                            GNN_ROW: SEGSUM_REPLACES["sorted_segment_sum"],
                            }.items():

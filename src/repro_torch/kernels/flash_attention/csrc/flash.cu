@@ -67,13 +67,49 @@
 //   and V tiles (128 KB), 161 KB a CTA, one CTA an SM.  The grid's slowest
 //   dimension is the query tile, longest rows (most key tiles) first.
 //
-// f32: flash_fma, the f32 FMA pipes (no one-pass tensor-core product holds
-// f32's 2e-5): one CTA of 256 threads per (batch, query head, 64-row query
-// tile), looping over 64-key tiles from key 0 to the tile's diagonal, with
-// the running max, normaliser and the 64 x d accumulator in registers (4
-// rows x d/16 columns a thread) and the tiles in shared memory, K and V
-// taking turns in one buffer (86 KB at d = 128, two CTAs an SM).
-//
+// f32: flash_fma.  What bounds it on an H100: operations.  On the FMA
+// pipes, 4 d flops a (query, key) pair at 67 TFLOP/s, but shared memory
+// feeds an SM 32 words a clock against 128 FMAs, and a 16-byte load costs
+// 16 bytes a thread even where lanes share the address: a first design on
+// the FMA pipes, S as 8 x 4 and O as 8 x 8 a thread, reached 0.55 of that
+// bound (PERF.md).  No one-pass tensor-core product holds f32's
+// 2e-5, so the products are 3xTF32 (hi hi + hi lo + lo hi, each operand
+// split into two tf32 halves) on mma.sync m16n8k8: three products at
+// 495 TFLOP/s are 0.41 of the FMA pipes' time.  And Qwen3's 1 x 512 f32
+// prefill layer is 1.08 GFLOP in 8 x 16 = 128 tiles of 64 query rows,
+// 1-8 key tiles long when causal.  So:
+//   - A work list cut on the host (ops.fma_plan): where the (batch, head,
+//     query tile)s number fewer than two CTAs an SM (264), each tile's key
+//     range is cut into chunks of nearly equal numbers of 64-key tiles, so
+//     that the list holds at least 264 items wherever the work allows, and
+//     items run longest first (the grid's slowest dimension is the item,
+//     the same for every head; the list is copied to the device once a
+//     shape and read from there, so a call makes no copy and no sync).  A tile with more than one chunk writes its
+//     chunks' running max m (log2 domain), sum l and unnormalised 64 x d
+//     accumulator to an f32 workspace, and flash_fma_merge adds them in
+//     chunk order: exp2(m_c - max m) weights, then / l.  No atomics, so the
+//     same inputs give the same bits.  A chunk in which a row sees no key
+//     keeps m = -1e30 and garbage l and acc (exp(-1e30 + 1e30) = 1 a key);
+//     its weight exp2(-1e30 - max m) is 0, and the chunk holding key 0
+//     always has a real score.  A shape with enough tiles keeps one chunk a
+//     tile, writes O itself and runs no merge.
+//   - A CTA of 4 warps owns 64 query rows, 16 a warp: S = Q K^T for its 16
+//     rows x 64 keys in 8 accumulators of m16n8, the online softmax on
+//     them (a row's scores in the 4 lanes of a quad), and P V with P's A
+//     fragments taken from S's accumulators by renaming keys (no shuffle)
+//     into a fresh accumulator a group of 4 column blocks, added to O on
+//     the FMA pipes: the tensor cores' f32 sums truncate.  Operands are
+//     split on the fly with an integer add and mask and a float subtract:
+//     cvt.rna.tf32 runs at a fraction of the FMA rate.
+//   - Q, K and V in shared memory with 16-byte chunks swizzled (chunk c of
+//     row r at c ^ (r % 8)), so every fragment read hits 32 banks.  One K
+//     and one V buffer of 64 keys, filled by 16-byte cp.async (rows past lk
+//     zero-filled): V of tile j lands during Q K^T of tile j, K of tile
+//     j + 1 during P V of tile j.  Two block barriers a tile: before Q K^T
+//     (K landed; V free) and before P V (V landed; K free).
+//   Shared memory at d = 128: Q, K and V 32 KB each, 96 KB a CTA: two CTAs
+//   an SM (double-buffered 64-key stages would not fit two).
+
 // Masking as the TPU kernel, in both: a masked score is -1e30 and the key
 // tiles start at key 0, so every row's first tile holds a real score (key 0
 // is visible to every row when lq <= lk) and a masked score adds
@@ -565,188 +601,420 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int b,
 }
 
 // ---------------------------------------------------------------------------
-// f32: the FMA kernel
+// f32: the FMA kernel and its merge
 
-constexpr int kBQ = 64;          // query rows per CTA
-constexpr int kBK = 64;          // keys per tile
-constexpr int kThreads = 256;    // 16 x 16: rows ty + 16 i, columns tx + 16 j
-constexpr int kPStride = kBK + 16;
-static_assert(kBQ == kBK, "load_tile moves 64-row tiles of Q, K and V");
+constexpr int kBQ = 64;          // query rows a CTA, 16 a warp
+constexpr int kBK = 64;          // keys a key tile
+constexpr int kThreads = 128;    // 4 warps
+constexpr int kMergeThreads = 256;
 
-// Rows 0 .. 63 of a [rows, D] block into shared memory (row stride D + 4),
-// rows from n_valid on as zeros.  The block is contiguous in device memory,
-// so neighbouring threads read neighbouring addresses.
 template <int D>
-__device__ __forceinline__ void load_tile(float* sm, const float* g,
+struct FmaShape {
+  static constexpr int kSmem = (kBQ + 2 * kBK) * D * 4;   // Q, K, V
+};
+
+// The key tiles query tile t sees: to its last row's diagonal if causal.
+__host__ __device__ __forceinline__ int key_tiles(int t, int lq, int lk,
+                                                  int causal) {
+  const int rows = lq < (t + 1) * kBQ ? lq : (t + 1) * kBQ;
+  return ((causal ? rows + lk - lq : lk) + kBK - 1) / kBK;
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's newest copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Element (r, d) of a [64][D] tile in shared memory: 16-byte chunk d / 4
+// of row r lands at chunk (d / 4) ^ (r % 8), so a fragment's 8 rows x 4
+// columns (or 4 rows x 8 columns, V's) fall on 32 distinct banks.
+template <int D>
+__device__ __forceinline__ int swz(int r, int d) {
+  return r * D + (((d >> 2) ^ (r & 7)) << 2) + (d & 3);
+}
+
+// Rows 0 .. 63 of a contiguous [rows, D] block into shared memory,
+// swizzled, 16 bytes a copy, neighbouring threads on neighbouring
+// addresses; rows from n_valid on are zero-filled and not read.
+template <int D>
+__device__ __forceinline__ void copy_tile(uint32_t sm, const float* g,
                                           int n_valid) {
   constexpr int kVec = D / 4;
-  for (int e = threadIdx.x; e < kBK * kVec; e += kThreads) {
-    int r = e / kVec, c = (e % kVec) * 4;
-    float4 f = r < n_valid
-                   ? *reinterpret_cast<const float4*>(g + (size_t)r * D + c)
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
-    *reinterpret_cast<float4*>(sm + r * (D + 4) + c) = f;
+  static_assert(kBQ == kBK && kBK * kVec % kThreads == 0,
+                "Q, K and V tiles of 64 rows, whole rounds of copies");
+#pragma unroll
+  for (int i = 0; i < kBK * kVec / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int r = e / kVec, d = (e % kVec) * 4;
+    const bool valid = r < n_valid;
+    cp_async16(sm + swz<D>(r, d) * 4, valid ? g + r * D + d : g, valid);
   }
 }
 
-// Reductions over the 16 lanes that share a row (lanes 0-15 or 16-31).
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int s = 8; s > 0; s >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, s));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int s = 8; s > 0; s >>= 1) x += __shfl_xor_sync(0xffffffffu, x, s);
-  return x;
+__device__ __forceinline__ void fma4(float4& a, float p, const float4& v) {
+  a.x = fmaf(p, v.x, a.x);
+  a.y = fmaf(p, v.y, a.y);
+  a.z = fmaf(p, v.z, a.z);
+  a.w = fmaf(p, v.w, a.w);
 }
 
+// x as hi + lo for tf32 products: hi is x with its low 13 bits cleared, lo
+// = x - hi exactly; a product reads lo's top 19 bits alone, so the pair
+// carries x to within 2^-20 |x|.  One integer and one float operation at
+// the full rate: cvt.rna.tf32 runs at a fraction of it, and the kernel
+// splits every operand it reads (rounding hi too took 7% longer, PERF.md).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a b on the tensor cores, m16n8k8, tf32 operands, f32 sums.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b as three tf32 products (3xTF32), the small ones first; the
+// dropped lo lo term is under 2^-20 of a b.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
+}
+
+// The workspace slot of (batch x head bh, query tile t, chunk c): chunks
+// [max_chunks] per tile, tiles [n_qt] per head.
+__device__ __forceinline__ size_t fma_slot(int bh, int t, int c, int n_qt,
+                                           int max_chunks) {
+  return (static_cast<size_t>(bh) * n_qt + t) * max_chunks + c;
+}
+
+// The fragments of mma m16n8k8, for lane (g = lane / 4, t4 = lane % 4):
+// A (16 x 8) a0 (g, t4), a1 (g + 8, t4), a2 (g, t4 + 4), a3 (g + 8, t4 + 4);
+// B (8 x 8) b0 (t4, g), b1 (t4 + 4, g); C (16 x 8) c0 (g, 2 t4), c1 (g,
+// 2 t4 + 1), c2 (g + 8, 2 t4), c3 (g + 8, 2 t4 + 1).
 template <int D>
 // repro: grid[concurrent]
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fma(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, float* __restrict__ o, int hq,
-          int group, int lq, int lk, int causal, float sm_scale) {
-  constexpr int kCols = D / 16;            // accumulator columns a thread
-  extern __shared__ float smem[];
-  float* qs = smem;                        // [kBQ][D + 4]
-  float* kvs = qs + kBQ * (D + 4);         // [kBK][D + 4], K then V
-  float* ps = kvs + kBK * (D + 4);         // [kBQ][kPStride]
+          const float* __restrict__ v, float* __restrict__ o,
+          float* __restrict__ ws_acc, float2* __restrict__ ws_ml, int hq,
+          int group, int lq, int lk, int causal, float scale_log2,
+          int chunk_tiles, const uint32_t* __restrict__ items) {
+  constexpr int kNB = kBK / 8;             // 8-key blocks of S
+  constexpr int kNO = D / 8;               // 8-column blocks of O, and
+                                           // 8-wide k-steps of Q K^T
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                        // [kBQ][D], swizzled
+  float* ks = qs + kBQ * D;                // [kBK][D], swizzled
+  float* vs = ks + kBK * D;                // [kBK][D], swizzled
 
   const int n_qt = (lq + kBQ - 1) / kBQ;
-  const int q0 = (n_qt - 1 - blockIdx.x) * kBQ;   // longest rows first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int off = lk - lq;
-  const size_t q_base = (((size_t)b * hq + h) * lq + q0) * D;
-  const size_t kv_base = ((size_t)b * (hq / group) + h / group) * lk * D;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-
-  load_tile<D>(qs, q + q_base, lq - q0);
-
-  float m[4], l[4], acc[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kMaskValue;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
+  int t = n_qt - 1 - static_cast<int>(blockIdx.z), c = 0;
+  if (items) {                             // one head's work list
+    const uint32_t it = items[blockIdx.z];
+    t = it & 0xFFFF;
+    c = it >> 16;
   }
+  // the merge, launched after this grid, may start its launch now; it
+  // waits for this grid's end before it reads the workspace
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = t * kBQ, off = lk - lq;
+  const int n_kt = key_tiles(t, lq, lk, causal);
+  const int n_c = (n_kt + chunk_tiles - 1) / chunk_tiles;
+  const int kt0 = c * n_kt / n_c, kt1 = (c + 1) * n_kt / n_c;
+  const size_t q_base = ((static_cast<size_t>(b) * hq + h) * lq + q0) * D;
+  const float* kh = k + (static_cast<size_t>(b) * (hq / group) + h / group) *
+                            lk * D;
+  const float* vh = v + (kh - k);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int ra = 16 * (threadIdx.x >> 5) + g;   // this lane's rows ra, ra + 8
 
-  const int last_row = min(q0 + kBQ, lq) - 1;
-  const int k_end = causal ? min(lk, last_row + off + 1) : lk;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    __syncthreads();                       // the last tile's V is read
-    load_tile<D>(kvs, k + kv_base + (size_t)k0 * D, lk - k0);
-    __syncthreads();
+  const uint32_t qs_u = smem_u32(qs), ks_u = smem_u32(ks),
+                 vs_u = smem_u32(vs);
+  // copy groups: Q and K of the first tile, then its V
+  copy_tile<D>(qs_u, q + q_base, lq - q0);
+  copy_tile<D>(ks_u, kh + static_cast<size_t>(kt0) * kBK * D,
+               lk - kt0 * kBK);
+  cp_async_commit();
+  copy_tile<D>(vs_u, vh + static_cast<size_t>(kt0) * kBK * D,
+               lk - kt0 * kBK);
+  cp_async_commit();
 
-    float s[4][4];
+  float m[2] = {kMaskValue, kMaskValue}, l[2] = {0.f, 0.f};
+  float acc[kNO][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < kNO; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(
-            qs + (ty + 16 * i) * (D + 4) + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(
-            kvs + (tx + 16 * j) * (D + 4) + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
-        }
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int k0 = kt * kBK;
+    if (kt == kt0)
+      cp_async_wait<1>();                  // Q and K landed, V may not have
+    else
+      cp_async_wait<0>();                  // this tile's K landed
+    __syncthreads();                       // ... for every thread; V free
+    if (kt > kt0) {                        // V lands during Q K^T
+      copy_tile<D>(vs_u, vh + static_cast<size_t>(k0) * D, lk - k0);
+      cp_async_commit();
     }
 
-    // scale, mask, and the online softmax update of each row
+    // S = Q K^T: this warp's 16 rows x 64 keys in 8 blocks of 8 keys
+    float sc[kNB][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i + off;      // the query's key position
+    for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nb][e] = 0.f;
+#pragma unroll 2
+    for (int kq = 0; kq < kNO; ++kq) {
+      const int d0 = 8 * kq + t4;
+      uint32_t ah[4], al[4];
+      split_tf32(qs[swz<D>(ra, d0)], ah[0], al[0]);
+      split_tf32(qs[swz<D>(ra + 8, d0)], ah[1], al[1]);
+      split_tf32(qs[swz<D>(ra, d0 + 4)], ah[2], al[2]);
+      split_tf32(qs[swz<D>(ra + 8, d0 + 4)], ah[3], al[3]);
+#pragma unroll
+      for (int nb = 0; nb < kNB; ++nb) {
+        uint32_t bh[2], bl[2];
+        split_tf32(ks[swz<D>(8 * nb + g, d0)], bh[0], bl[0]);
+        split_tf32(ks[swz<D>(8 * nb + g, d0 + 4)], bh[1], bl[1]);
+        mma_3xtf32(sc[nb], ah, al, bh, bl);
+      }
+    }
+
+    // scale to the log2 domain, mask the tiles that cross the diagonal or
+    // the ragged key edge, and the online softmax of rows ra + 8 hh; l
+    // keeps this lane's keys only, summed over the row's 4 lanes at the end
+    const bool edge = k0 + kBK > lk || (causal && k0 + kBK - 1 > q0 + off);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = q0 + ra + 8 * hh + off;   // the query's key position
       float mx = kMaskValue;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool keep = col < lk && (!causal || col <= row);
-        s[i][j] = keep ? s[i][j] * sm_scale : kMaskValue;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);
+      for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + 8 * nb + 2 * t4 + e;
+          const bool keep = !edge || (key < lk && (!causal || key <= row));
+          float& x = sc[nb][2 * hh + e];
+          x = keep ? x * scale_log2 : kMaskValue;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[hh], mx);
+      const float alpha = fast_exp2(m[hh] - m_new);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        ps[(ty + 16 * i) * kPStride + tx + 16 * j] = p;
-        sum += p;
+      for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[nb][2 * hh + e];
+          x = fast_exp2(x - m_new);
+          sum += x;
+        }
+      l[hh] = fmaf(alpha, l[hh], sum);
+      m[hh] = m_new;
+#pragma unroll
+      for (int n = 0; n < kNO; ++n) {
+        acc[n][2 * hh] *= alpha;
+        acc[n][2 * hh + 1] *= alpha;
       }
-      l[i] = alpha * l[i] + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
     }
-    __syncthreads();                       // K is read and P written
-    load_tile<D>(kvs, v + kv_base + (size_t)k0 * D, lk - k0);
-    __syncthreads();
+    // P's A fragments from S's C fragments, no shuffle: k-step kk is key
+    // block kk, its k index t4 standing for key 2 t4 and t4 + 4 for key
+    // 2 t4 + 1 (V's B fragments read those rows)
+    uint32_t ph[kNB][4], pl[kNB][4];
+#pragma unroll
+    for (int kk = 0; kk < kNB; ++kk) {
+      split_tf32(sc[kk][0], ph[kk][0], pl[kk][0]);
+      split_tf32(sc[kk][2], ph[kk][1], pl[kk][1]);
+      split_tf32(sc[kk][1], ph[kk][2], pl[kk][2]);
+      split_tf32(sc[kk][3], ph[kk][3], pl[kk][3]);
+    }
+    cp_async_wait<0>();                    // this tile's V landed
+    __syncthreads();                       // ... for every thread; K free
+    if (kt + 1 < kt1) {                    // K lands during P V
+      copy_tile<D>(ks_u, kh + static_cast<size_t>(k0 + kBK) * D,
+                   lk - k0 - kBK);
+      cp_async_commit();
+    }
 
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float p[4], vv[kCols];
+    // O += P V: each group of 4 column blocks in a fresh accumulator,
+    // added to O on the FMA pipes (the tensor cores' f32 sums truncate)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[(ty + 16 * i) * kPStride + kk];
+    for (int n0 = 0; n0 < kNO; n0 += 4) {
+      float f[4][4];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) vv[c] = kvs[kk * (D + 4) + tx + 16 * c];
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int e = 0; e < 4; ++e) f[j][e] = 0.f;
 #pragma unroll
-        for (int c = 0; c < kCols; ++c)
-          acc[i][c] = fmaf(p[i], vv[c], acc[i][c]);
+      for (int kk = 0; kk < kNB; ++kk) {
+        const int key = 8 * kk + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = 8 * (n0 + j) + g;
+          uint32_t bh[2], bl[2];
+          split_tf32(vs[swz<D>(key, col)], bh[0], bl[0]);
+          split_tf32(vs[swz<D>(key + 1, col)], bh[1], bl[1]);
+          mma_3xtf32(f[j], ph[kk], pl[kk], bh, bl);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n0 + j][e] += f[j][e];
     }
   }
 
+  // one chunk: O / l (l == 0 divides by 1); else the chunk's m, l and
+  // accumulator to its workspace slot.  Rows < lq only.
+  const int max_chunks =
+      (key_tiles(n_qt - 1, lq, lk, causal) + chunk_tiles - 1) / chunk_tiles;
+  const size_t slot = fma_slot(b * hq + h, t, c, n_qt, max_chunks);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
+  for (int hh = 0; hh < 2; ++hh) {
+    float li = l[hh];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    const int r = ra + 8 * hh;
     if (q0 + r >= lq) continue;
-    const float den = l[i] == 0.f ? 1.f : l[i];
-    float* out = o + q_base + (size_t)r * D;
+    const bool one = n_c == 1;
+    const float den = !one ? 1.f : li == 0.f ? 1.f : li;
+    float* out = one ? o + q_base + r * D : ws_acc + (slot * kBQ + r) * D;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) out[tx + 16 * c] = acc[i][c] / den;
+    for (int n = 0; n < kNO; ++n)
+      *reinterpret_cast<float2*>(out + 8 * n + 2 * t4) =
+          make_float2(acc[n][2 * hh] / den, acc[n][2 * hh + 1] / den);
+    if (!one && t4 == 0) ws_ml[slot * kBQ + r] = make_float2(m[hh], li);
   }
 }
 
+// O of the query tiles cut into chunks: each row's chunks weighted by
+// exp2(m_c - max m) and added in chunk order, then / l.  A thread an
+// output float4: CTAs of kMergeThreads / (D / 4) rows, (row block, query
+// tile x head, batch); a tile of one chunk was written by flash_fma.
 template <int D>
-int launch_fma(const void* q, const void* k, const void* v, void* o, int b,
-               int hq, int hkv, int lq, int lk, int causal, float sm_scale,
-               cudaStream_t stream) {
-  constexpr int kSmem =
-      (kBQ * (D + 4) + kBK * (D + 4) + kBQ * kPStride) * sizeof(float);
+// repro: grid[concurrent]
+__global__ void __launch_bounds__(kMergeThreads)
+flash_fma_merge(const float* __restrict__ ws_acc,
+                const float2* __restrict__ ws_ml, float* __restrict__ o,
+                int hq, int lq, int lk, int causal, int chunk_tiles) {
+  constexpr int kVec = D / 4, kRows = kMergeThreads / kVec;
+  // launched as flash_fma's programmatic dependent: wait for its end
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int n_qt = (lq + kBQ - 1) / kBQ;
+  const int t = blockIdx.y % n_qt, h = blockIdx.y / n_qt, b = blockIdx.z;
+  const int n_c = (key_tiles(t, lq, lk, causal) + chunk_tiles - 1) /
+                  chunk_tiles;
+  const int r = blockIdx.x * kRows + threadIdx.x / kVec, c4 = threadIdx.x % kVec;
+  const int q0 = t * kBQ;
+  if (n_c == 1 || q0 + r >= lq) return;
+  const int max_chunks =
+      (key_tiles(n_qt - 1, lq, lk, causal) + chunk_tiles - 1) / chunk_tiles;
+  const size_t slot0 = fma_slot(b * hq + h, t, 0, n_qt, max_chunks);
+  const float2* ml = ws_ml + slot0 * kBQ + r;
+  const float4* acc4 =
+      reinterpret_cast<const float4*>(ws_acc) + (slot0 * kBQ + r) * kVec + c4;
+  float mx = kMaskValue;
+#pragma unroll 4
+  for (int c = 0; c < n_c; ++c) mx = fmaxf(mx, ml[c * kBQ].x);
+  float l = 0.f;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+  for (int c = 0; c < n_c; ++c) {
+    const float2 mlc = ml[c * kBQ];
+    const float w = fast_exp2(mlc.x - mx);
+    l = fmaf(w, mlc.y, l);
+    fma4(a, w, acc4[c * kBQ * kVec]);
+  }
+  const float den = l == 0.f ? 1.f : l;
+  reinterpret_cast<float4*>(
+      o + ((static_cast<size_t>(b) * hq + h) * lq + q0 + r) * D)[c4] =
+      make_float4(a.x / den, a.y / den, a.z / den, a.w / den);
+}
+
+// items == nullptr: one chunk a tile, grid item z is query tile n_qt - 1 -
+// z, and ws is not read.  Else items (device memory) holds n_items work
+// items a head (t | c << 16, longest first), chunk_tiles key tiles at most
+// a chunk, and ws b * hq * n_qt * max_chunks slots of 64 x D accumulator
+// floats, then as many of 64 (m, l) pairs.
+template <int D>
+int launch_fma(const void* q, const void* k, const void* v, void* o, void* ws,
+               int b, int hq, int hkv, int lq, int lk, int causal,
+               float sm_scale, int chunk_tiles, int n_items,
+               const uint32_t* items, cudaStream_t stream) {
+  using S = FmaShape<D>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      flash_fma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((lq + kBQ - 1) / kBQ, hq, b);
-  flash_fma<D><<<grid, kThreads, kSmem, stream>>>(
+  const int n_qt = (lq + kBQ - 1) / kBQ;
+  const int longest = key_tiles(n_qt - 1, lq, lk, causal);
+  const bool split = items != nullptr;
+  if (!split) {
+    n_items = n_qt;
+    chunk_tiles = longest;
+  } else if (n_items < 1 || chunk_tiles < 1 || ws == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int max_chunks = (longest + chunk_tiles - 1) / chunk_tiles;
+  float* ws_acc = static_cast<float*>(ws);
+  float2* ws_ml = split ? reinterpret_cast<float2*>(
+                              ws_acc + static_cast<size_t>(b) * hq * n_qt *
+                                           max_chunks * kBQ * D)
+                        : nullptr;
+  flash_fma<D><<<dim3(hq, b, n_items), kThreads, S::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), hq, hq / hkv, lq,
-      lk, causal, sm_scale);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const float*>(v), static_cast<float*>(o), ws_acc, ws_ml,
+      hq, hq / hkv, lq, lk, causal, sm_scale * 1.4426950408889634f,
+      chunk_tiles, items);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !split) return static_cast<int>(err);
+  // a programmatic dependent launch: its launch overlaps flash_fma's tail
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kBQ / (kMergeThreads / (D / 4)), n_qt * hq, b);
+  cfg.blockDim = dim3(kMergeThreads);
+  cfg.stream = stream;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, flash_fma_merge<D>, static_cast<const float*>(ws_acc),
+      static_cast<const float2*>(ws_ml), static_cast<float*>(o), hq, lq, lk,
+      causal, chunk_tiles));
 }
 
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
-           int b, int hq, int hkv, int lq, int lk, int causal, float sm_scale,
-           cudaStream_t stream) {
+           void* ws, int b, int hq, int hkv, int lq, int lk, int causal,
+           float sm_scale, int chunk_tiles, int n_items,
+           const uint32_t* items, cudaStream_t stream) {
   if (dtype == 0)
-    return launch_fma<D>(q, k, v, o, b, hq, hkv, lq, lk, causal, sm_scale,
-                         stream);
+    return launch_fma<D>(q, k, v, o, ws, b, hq, hkv, lq, lk, causal,
+                         sm_scale, chunk_tiles, n_items, items, stream);
   if (dtype == 1)
     return launch_tc<D>(q, k, v, o, b, hq, hkv, lq, lk, causal, sm_scale,
                         stream);
@@ -767,23 +1035,43 @@ const char* flash_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// Dynamic shared memory of flash_fma at head dim d (bytes), or 0.
+int flash_fma_smem(int d) {
+  switch (d) {
+    case 32:
+      return FmaShape<32>::kSmem;
+    case 64:
+      return FmaShape<64>::kSmem;
+    case 128:
+      return FmaShape<128>::kSmem;
+    default:
+      return 0;
+  }
+}
+
 // q [b, hq, lq, d], k and v [b, hkv, lk, d], o [b, hq, lq, d], contiguous,
 // 16-byte aligned; dtype 0 = f32 (the FMA kernel), 1 = bf16 (the
-// tensor-core kernel); d in {32, 64, 128}; lq <= lk.
+// tensor-core kernel); d in {32, 64, 128}; lq <= lk.  f32 only: items
+// (device memory, n_items of them) is ops.fma_plan's work list of one
+// head, or null for one chunk a tile; chunk_tiles its chunk length and ws
+// its workspace, or null where items is (launch_fma).  A split call runs flash_fma, then
+// flash_fma_merge.
 int flash_attention(const void* q, const void* k, const void* v, void* o,
-                    int dtype, int b, int hq, int hkv, int lq, int lk, int d,
-                    int causal, float sm_scale, void* stream) {
+                    void* ws, int dtype, int b, int hq, int hkv, int lq,
+                    int lk, int d, int causal, float sm_scale,
+                    int chunk_tiles, int n_items, const uint32_t* items,
+                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32:
-      return launch<32>(dtype, q, k, v, o, b, hq, hkv, lq, lk, causal,
-                        sm_scale, s);
+      return launch<32>(dtype, q, k, v, o, ws, b, hq, hkv, lq, lk, causal,
+                        sm_scale, chunk_tiles, n_items, items, s);
     case 64:
-      return launch<64>(dtype, q, k, v, o, b, hq, hkv, lq, lk, causal,
-                        sm_scale, s);
+      return launch<64>(dtype, q, k, v, o, ws, b, hq, hkv, lq, lk, causal,
+                        sm_scale, chunk_tiles, n_items, items, s);
     case 128:
-      return launch<128>(dtype, q, k, v, o, b, hq, hkv, lq, lk, causal,
-                         sm_scale, s);
+      return launch<128>(dtype, q, k, v, o, ws, b, hq, hkv, lq, lk, causal,
+                         sm_scale, chunk_tiles, n_items, items, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -3,7 +3,10 @@ tensors (its plain version, ``attention_ref``) against the JAX package's
 three attention functions (the naive ``attention_ref``, the blockwise
 ``attention_flash_jnp`` and the Pallas kernel in interpret mode) on the
 same inputs, made with numpy from a seed; the wrapper's refusals, and the
-plain version's query-row pieces."""
+plain version's query-row pieces.  The f32 kernel's work list
+(``ops.fma_plan``) on every shape the tests and the bench launch, and a
+plain emulation of its split and merge against the JAX functions."""
+import collections
 import functools
 
 import jax.numpy as jnp
@@ -14,7 +17,8 @@ import torch
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import (attention_flash_jnp,
                                                attention_ref as jax_ref)
-from repro_torch.kernels.flash_attention import ops, ref
+from repro_torch.kernels.flash_attention import bench, ops, ref
+from test_torch_gpu_kernels import FLASH_CASES, FMA_UNSPLIT
 
 # b, hq, hkv, lq, lk, d, causal: tests/test_kernels.py's CASES
 CASES = [
@@ -45,15 +49,16 @@ def _inputs(b, hq, hkv, lq, lk, d, seed):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_outputs(case):
+def _jax_outputs(case, block=64):
     b, hq, hkv, lq, lk, d, causal = case
     q, k, v = (jnp.asarray(x) for x in _inputs(b, hq, hkv, lq, lk, d,
                                                 lq + lk))
     return {
         "attention_ref": jax_ref(q, k, v, causal=causal),
-        "flash_jnp": attention_flash_jnp(q, k, v, causal=causal, block_k=64),
+        "flash_jnp": attention_flash_jnp(q, k, v, causal=causal,
+                                         block_k=block),
         "pallas": jax_flash(q, k, v, causal=causal, impl="pallas",
-                            interpret=True, block_q=64, block_k=64),
+                            interpret=True, block_q=block, block_k=block),
     }
 
 
@@ -186,3 +191,114 @@ def test_split_p_holds_bf16_tolerance_and_one_bf16_p_does_not():
     with pytest.raises(AssertionError, match="Mismatched elements"):
         torch.testing.assert_close(
             _emulate_tensor_core(q, k, v, split=False), want)
+
+
+# every (b, hq, hkv, lq, lk, d) that the CPU and card tests and the bench
+# launch, each planned causal and not
+PLAN_SHAPES = sorted({c[:6] for c in (*CASES, *FLASH_CASES,
+                                      *bench.SHAPES.values())})
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_fma_plan_cuts_every_kept_tile_once_longest_first(shape, causal):
+    b, hq, hkv, lq, lk, d = shape
+    plan = ops.fma_plan(b, hq, hkv, lq, lk, d, causal)
+    rows, keys = ops.FMA_ROWS, ops.FMA_KEYS
+    n_qt = -(-lq // rows)
+
+    def last_key(t):      # the last key the tile's last row sees
+        return min(lq, (t + 1) * rows) - 1 + lk - lq if causal else lk - 1
+    kept = {(t, kt) for t in range(n_qt) for kt in range(-(-lk // keys))
+            if kt * keys <= last_key(t)}
+    seen = collections.Counter()
+    by_tile = collections.defaultdict(list)
+    for t, c, lo, hi in plan.items:
+        assert lo < hi                        # no item is empty
+        assert lo * keys <= last_key(t)       # nor masked for every row
+        assert c < plan.chunks(t)
+        seen.update((t, kt) for kt in range(lo, hi))
+        by_tile[t].append((c, hi - lo))
+    assert set(seen) == kept and set(seen.values()) == {1}
+    lengths = [hi - lo for _, _, lo, hi in plan.items]
+    assert lengths == sorted(lengths, reverse=True)     # longest first
+    for t, chunks in by_tile.items():     # nearly equal, within the cap
+        assert sorted(c for c, _ in chunks) == list(range(plan.chunks(t)))
+        sizes = [n for _, n in chunks]
+        assert max(sizes) - min(sizes) <= 1
+        assert max(sizes) <= plan.chunk_tiles
+    items = plan.heads * len(plan.items)
+    assert plan.heads == b * hq
+    # two CTAs an SM wherever the work allows; a full grid is not cut
+    assert items >= min(ops.FMA_SLOTS, plan.heads * len(kept))
+    assert plan.split == (b * hq * n_qt < ops.FMA_SLOTS and items > b * hq
+                          * n_qt)
+    if shape == bench.SHAPES["long"][:6]:
+        assert not plan.split and len(plan.items) == n_qt
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_fma_launch_args_pack_the_items_and_size_the_workspace(shape):
+    """The kernel reads item z of the table as t | c << 16 (int32) and a
+    split tile's chunks from slot ((bh * n_qt + t) * max_chunks + c) of
+    the workspace; an unsplit call gets no table and no workspace."""
+    b, hq, hkv, lq, lk, d = shape
+    plan = ops.fma_plan(b, hq, hkv, lq, lk, d, True)
+    chunk_tiles, n_items, packed, ws_floats = ops.fma_launch_args(plan, d)
+    assert (chunk_tiles, n_items) == (plan.chunk_tiles, len(plan.items))
+    if not plan.split:
+        assert packed is None and ws_floats == 0
+        return
+    assert [(x & 0xFFFF, x >> 16) for x in packed] == [
+        (t, c) for t, c, _, _ in plan.items]
+    assert max(packed) < 2 ** 31
+    slots = b * hq * -(-lq // ops.FMA_ROWS) * plan.max_chunks
+    assert plan.max_chunks == max(plan.chunks(t) for t, *_ in plan.items)
+    assert ws_floats == slots * ops.FMA_ROWS * (d + 2)
+
+
+def test_fma_plan_splits_the_card_cases_as_they_expect():
+    """The card tests assert each f32 case's split; the same here, so a
+    change to the plan shows on the CPU first."""
+    for case in FLASH_CASES:
+        assert ops.fma_plan(*case).split == (case not in FMA_UNSPLIT), case
+
+
+@pytest.mark.parametrize("chunk_tiles", [None, 2])
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_split_emulation_matches_jax_impls(case, chunk_tiles):
+    """The f32 kernel's split and merge, on its own plan (one key tile a
+    chunk at these sizes) and on chunks of two key tiles (which leaves
+    the smaller cases whole), against the JAX package's three
+    functions."""
+    b, hq, hkv, lq, lk, d, causal = case
+    q, k, v = (torch.from_numpy(x) for x in _inputs(b, hq, hkv, lq, lk, d,
+                                                     lq + lk))
+    plan = ops.fma_plan(*case, chunk_tiles=chunk_tiles)
+    assert plan.split or chunk_tiles
+    got = ref.attention_split_ref(q, k, v, plan, causal=causal).numpy()
+    for impl, want in _jax_outputs(case).items():
+        np.testing.assert_allclose(got, np.asarray(want), atol=2e-5,
+                                   err_msg=impl)
+
+
+def test_split_emulation_weights_a_chunk_no_row_sees_by_zero():
+    """96 queries over 128 keys (the queries from key 32 on), a key tile
+    a chunk: query tile 0's second chunk (keys 64-127) is masked for its
+    rows 0-31 (they see keys up to 32 + r), which keep m = -1e30 and sum
+    p = 1 for each of the 64 keys into l.  The merge weights them by
+    exp(-1e30 - m) = 0, and the result matches the JAX functions (blocks
+    of 32, which these lengths take)."""
+    case = (1, 2, 2, 96, 128, 64, True)
+    q, k, v = (torch.from_numpy(x) for x in _inputs(*case[:6], 96 + 128))
+    plan = ops.fma_plan(*case, chunk_tiles=1)
+    assert (0, 1, 1, 2) in plan.items
+    parts = {}
+    got = ref.attention_split_ref(q, k, v, plan, parts=parts).numpy()
+    m, l, acc = parts[0, 1]
+    assert (m[:, :, :32] == ref.MASK_VALUE).all()
+    assert (l[:, :, :32] == 64).all() and (m[:, :, 32:] > -1e29).all()
+    assert acc[:, :, :32].abs().max() > 1      # the garbage is there
+    for impl, want in _jax_outputs(case, block=32).items():
+        np.testing.assert_allclose(got, np.asarray(want), atol=2e-5,
+                                   err_msg=impl)

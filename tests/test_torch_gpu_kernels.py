@@ -884,7 +884,9 @@ def test_cuda_fsm_matches_plain_backend(cuda):
 # (tests/test_kernels.py), a ragged key length, and Qwen3-0.6B's prefill;
 # then shapes across the tensor-core kernel's 128-row and 128-key tiles:
 # ragged lq and lk, one query over 4,100 keys, lq < lk bidirectional, GQA
-# groups of 4 and 8, d = 32 and 64 at 1,000 tokens, and an 8k prefill
+# groups of 4 and 8, d = 32 and 64 at 1,000 tokens, and an 8k prefill;
+# then the f32 bench's shapes (check, chunk; long is Qwen3-0.6B's prefill
+# above) and a ragged lq < lk that the f32 plan cuts into many chunks
 FLASH_CASES = [
     (2, 4, 2, 128, 128, 64, True),
     (1, 8, 8, 256, 256, 64, True),
@@ -903,7 +905,14 @@ FLASH_CASES = [
     (1, 4, 2, 1000, 1000, 32, True),
     (1, 4, 2, 1000, 1000, 64, True),
     (1, 16, 8, 8192, 8192, 128, True),
+    (1, 16, 8, 512, 512, 128, True),
+    (1, 16, 8, 512, 4096, 128, True),
+    (1, 4, 2, 100, 4100, 64, True),
 ]
+# the cases whose f32 plan keeps one chunk a query tile: their (batch,
+# head, query tile)s fill two CTAs an SM
+FMA_UNSPLIT = {(1, 16, 8, 4096, 4096, 128, True),
+               (1, 16, 8, 8192, 8192, 128, True)}
 
 
 def _qkv(device, b, hq, hkv, lq, lk, d, dtype, seed=0):
@@ -927,11 +936,28 @@ def test_flash_attention_matches_plain(cuda, b, hq, hkv, lq, lk, d, causal,
     want = flash_ref.attention_ref(q, k, v, causal=causal)
     assert got.dtype == dt and got.shape == want.shape
     if dt == torch.float32:
+        case = (b, hq, hkv, lq, lk, d, causal)
+        plan = flash_ops.fma_plan(*case)
+        assert plan.split == (case not in FMA_UNSPLIT)
         # f32 throughout, sums in another order: the JAX tests' 2e-5
         torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
     else:
         # both sum in f32 and round once to bf16: bf16's default tolerance
         torch.testing.assert_close(got, want)
+
+
+@pytest.mark.parametrize("b,hq,hkv,lq,lk,d,causal", [
+    (1, 16, 8, 512, 512, 128, True), (1, 16, 8, 512, 4096, 128, True),
+    (1, 4, 2, 100, 4100, 64, True), (2, 4, 2, 37, 200, 32, False)])
+def test_flash_attention_f32_repeats_bit_for_bit(cuda, b, hq, hkv, lq, lk,
+                                                d, causal):
+    """The f32 kernel's chunks merge in a fixed order without atomics: two
+    calls on the same inputs give the same bits."""
+    q, k, v = _qkv(cuda, b, hq, hkv, lq, lk, d, torch.float32)
+    assert flash_ops.fma_plan(b, hq, hkv, lq, lk, d, causal).split
+    first = flash_ops.flash_attention(q, k, v, causal=causal)
+    second = flash_ops.flash_attention(q, k, v, causal=causal)
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
